@@ -1,0 +1,90 @@
+"""Bilinear resize with ``align_corners=True`` semantics.
+
+Port of `lanemapping_tpu/ops/interp.py`.  The JAX package wrote the resize
+as two dense 1-D operator matmuls because gathers map poorly onto the TPU
+(`interp.py:1-12, :148-159` there); on the GPU the natural form is
+``F.interpolate(..., mode="bilinear", align_corners=True)``, which is also
+what the reference uses.  The small NumPy operators stay: the column head
+applies the fused upsample-then-avgpool operator to its narrow proposal
+windows, where a [S, 2S] x [2S, 2W] product is the cheapest form.
+
+Layout: torch NCHW (``...CHW``), where the JAX package used NHWC.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix_np(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] align-corners linear interpolation operator."""
+    if n_in == n_out:
+        return np.eye(n_in, dtype=np.float32)
+    if n_in == 1:
+        return np.ones((n_out, 1), dtype=np.float32)
+    if n_out == 1:
+        m = np.zeros((1, n_in), dtype=np.float32)
+        m[0, 0] = 1.0
+        return m
+    scale = (n_in - 1) / (n_out - 1)
+    coords = np.arange(n_out, dtype=np.float64) * scale
+    lo = np.floor(coords).astype(np.int64)
+    lo = np.clip(lo, 0, n_in - 2)
+    frac = coords - lo
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    m[np.arange(n_out), lo] = (1.0 - frac).astype(np.float32)
+    m[np.arange(n_out), lo + 1] = frac.astype(np.float32)
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_matrix_np(n_in: int, k: int) -> np.ndarray:
+    """[n_in//k, n_in] average-pooling operator (stride == kernel == k)."""
+    n_out = n_in // k
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    for i in range(n_out):
+        m[i, i * k:(i + 1) * k] = 1.0 / k
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _upsample_then_pool_np(n_in: int, n_up: int, k: int) -> np.ndarray:
+    """Composite operator: align-corners upsample to n_up, then avg-pool by k.
+
+    Fuses the reference's ``avg_pool2d(upsample(x))`` pattern
+    (`heads/polyline_fpn_vit_vertex_2.py:295-296,400-402`) into one
+    [n_up//k, n_in] matrix so the full-resolution intermediate never exists.
+    """
+    return _pool_matrix_np(n_up, k) @ _interp_matrix_np(n_in, n_up)
+
+
+def resize_bilinear_ac(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Align-corners bilinear resize of NCHW tensors.
+
+    A same-size resize is the identity (the operator is ``eye``), so it
+    returns ``x`` itself.  The degenerate sizes agree with the operator form
+    of `_interp_matrix_np`: ``n_in == 1`` replicates, ``n_out == 1`` takes
+    the first pixel (PyTorch's align-corners scale is 0 for a 1-pixel
+    output).
+    """
+    if tuple(x.shape[-2:]) == (out_h, out_w):
+        return x
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=True)
+
+
+def upsample_then_avgpool(x: torch.Tensor, up_h: int, up_w: int,
+                          k: int) -> torch.Tensor:
+    """avg_pool_k(resize_ac(x, up_h, up_w)) on ``...HW`` tensors without the
+    full-resolution intermediate: two small operator products."""
+    h, w = x.shape[-2], x.shape[-1]
+    mh = torch.as_tensor(_upsample_then_pool_np(h, up_h, k), dtype=x.dtype,
+                         device=x.device)
+    mw = torch.as_tensor(_upsample_then_pool_np(w, up_w, k), dtype=x.dtype,
+                         device=x.device)
+    return mh @ x @ mw.T

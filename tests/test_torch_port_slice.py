@@ -1,0 +1,196 @@
+"""The port's whole slice against the JAX package, and its boundaries.
+
+One seeded lane-structured cloud, written with ``write_las_points``, goes
+raw LAS -> BEV tile -> tiny-config network -> decode -> host postprocess ->
+lane records through the port's entry points (``LasTiles``,
+``bev_image_from_points``, ``LaneMapper.map_arrays``) and through the JAX
+chain (``bev_image_from_points`` -> ``model.apply`` -> ``decode_lanes`` ->
+``lane_maps_from_decode`` -> ``lane_records``), with the same weights.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_helpers import REPO, TINY, tiny_models
+
+N_POINTS = 1 << 15
+# seed 0's decoded values sit clear of every decision threshold (asserted
+# below), so float32 rounding differences between the packages cannot flip
+# a vertex, a proposal or a tracker cell
+SEED = 0
+
+
+def write_clouds(root, n, img=192):
+    from lanemapping_tpu_torch.data.las import write_las_points
+    from lanemapping_tpu_torch.data.synthetic import (lane_structured_points,
+                                                      random_lane_seqs)
+
+    os.makedirs(os.path.join(root, "las"), exist_ok=True)
+    for i in range(n):
+        rng = np.random.RandomState(SEED + i)
+        seqs = random_lane_seqs(rng, img=img, n_lanes=4)
+        pts = lane_structured_points(seqs, [1, 2, 1, 1], img, rng, N_POINTS)
+        write_las_points(os.path.join(root, "las", f"t{i}.las"), pts)
+
+
+@pytest.fixture(scope="module")
+def slice_setup(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("las"))
+    write_clouds(root, 2)
+    jmodel, variables, tmodel, cfg_j, cfg_t = tiny_models(seed=1)
+    ckpt = os.path.join(root, "tiny.pth")
+    torch.save(tmodel.state_dict(), ckpt)
+    return root, ckpt, jmodel, variables, cfg_j, cfg_t
+
+
+def jax_chain(root, jmodel, variables, cfg):
+    from lanemapping_tpu.data.las import load_lidar_points, pad_points
+    from lanemapping_tpu.decode.lane_decode import decode_lanes, \
+        host_decode_view
+    from lanemapping_tpu.decode.postprocess import lane_maps_from_decode
+    from lanemapping_tpu.ops.voxelize import bev_image_from_points
+    from lanemapping_tpu.tools.export_lanes import lane_records
+    from lanemapping_tpu.tools.las2bev import las2bev_params
+
+    p = las2bev_params(cfg)
+    bufs = [pad_points(load_lidar_points(os.path.join(root, "las",
+                                                      f"t{i}.las")), N_POINTS)
+            for i in range(2)]
+    pts = jnp.asarray(np.stack([b[0] for b in bufs]))
+    msk = jnp.asarray(np.stack([b[1] for b in bufs]))
+
+    @jax.jit
+    def run(v, pts, msk):
+        x = jax.vmap(lambda a, m: bev_image_from_points(
+            a, m, p["pc_range"], 192, gain=p["gain"], bias=p["bias"],
+            fill_iters=p["fill_iters"]))(pts, msk)
+        x3 = jnp.broadcast_to(x[..., None], x.shape + (3,))
+        dec = decode_lanes(jmodel.apply(v, x3, train=False), cfg)
+        return x, dec
+
+    cfg.endp_decode = "exact_topk"
+    x, dec = jax.device_get(run(variables, pts, msk))
+    maps = lane_maps_from_decode(host_decode_view(dec), cfg)
+    return x, dec, [lane_records(m) for m in maps["cls_offset_smooth"]]
+
+
+def assert_clear_of_thresholds(dec, cfg, margin=1e-4):
+    """Proposal confidence off its threshold; at every vertex the host
+    keeps, the column argmax off a tie and the column off an integer (the
+    tracker truncates it to a cell)."""
+    conf = dec["prop_conf"][..., 1]
+    assert np.abs(conf - cfg.proposal_obj_thre).min() > margin
+    kept = (conf >= cfg.proposal_obj_thre)[..., None] \
+        & (dec["prop_v_ext"] > 0.5)
+    probs = np.sort(dec["prop_cls_conf"], axis=-1)
+    assert (probs[..., -1] - probs[..., -2])[kept].min() > margin
+    coors = dec["cls_offset"] / cfg.heads.row_size * 192
+    frac = np.abs(coors - np.round(coors))
+    assert frac[kept & (coors > 0)].min() > margin
+
+
+def assert_same_records(got, want):
+    """Same lanes, vertex rows and semantics; columns to 1e-3 px (float32
+    rounding differs between the packages)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert [(r["lane_id"], r["seq_len"]) for r in g] == \
+            [(r["lane_id"], r["seq_len"]) for r in w]
+        for rg, rw in zip(g, w):
+            sg, sw = np.asarray(rg["seq"]), np.asarray(rw["seq"])
+            np.testing.assert_array_equal(sg[:, [0, 2]], sw[:, [0, 2]])
+            np.testing.assert_allclose(sg[:, 1], sw[:, 1], atol=1e-3)
+
+
+def test_slice_las_to_lane_records_matches_jax(slice_setup):
+    from lanemapping_tpu_torch import LaneMapper
+    from lanemapping_tpu_torch.data.las_tiles import LasTiles
+    from lanemapping_tpu_torch.data.loader import Loader
+    from lanemapping_tpu_torch.ops.voxelize import bev_image_from_points
+    from lanemapping_tpu_torch.tools.las2bev import las2bev_params
+
+    root, ckpt, jmodel, variables, cfg_j, cfg_t = slice_setup
+    x_j, dec_j, recs_j = jax_chain(root, jmodel, variables, cfg_j)
+    assert_clear_of_thresholds(dec_j, cfg_j)
+    assert sum(map(len, recs_j)) >= 2
+
+    batch = next(iter(Loader(LasTiles(root, max_points=N_POINTS),
+                             batch_size=2, shuffle=False)))
+    p = las2bev_params(cfg_t)
+    x = bev_image_from_points(torch.tensor(batch["points"]),
+                              torch.tensor(batch["points_mask"]),
+                              p["pc_range"], 192, gain=p["gain"],
+                              bias=p["bias"], fill_iters=p["fill_iters"])
+    np.testing.assert_allclose(x.numpy(), x_j, rtol=1e-5, atol=1e-6)
+    mapper = LaneMapper(cfg_t, ckpt=ckpt, device="cpu")
+    tiles = x[..., None].expand(*x.shape, 3).numpy()
+    recs = [r["lanes"] for r in mapper.map_arrays(tiles)]
+    assert_same_records(recs, recs_j)
+
+
+def test_stream_map_cli_writes_one_lane_json_per_tile(slice_setup, tmp_path):
+    from lanemapping_tpu_torch.tools import stream_map
+
+    root, ckpt = slice_setup[:2]
+    rec = stream_map.main([TINY, root, "--from-las", "--device", "cpu",
+                           "--ckpt", ckpt, "--out", str(tmp_path),
+                           f"max_points={N_POINTS}"])
+    assert rec["n_tiles"] == 2 and rec["device"] == "cpu"
+    assert set(rec["stage_ms_per_batch"]) >= {"rasterize", "forward",
+                                              "decode", "postprocess_host"}
+    names = sorted(os.listdir(tmp_path / "lanes_2d"))
+    assert names == ["t0.json", "t1.json"]
+    for n in names:
+        recs = json.load(open(tmp_path / "lanes_2d" / n))
+        for r in recs:
+            seq = np.asarray(r["seq"], np.float64)
+            assert np.isfinite(seq).all() and r["seq_len"] == len(seq)
+    assert sum(len(json.load(open(tmp_path / "lanes_2d" / n)))
+               for n in names) >= 2
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import lanemapping_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'lanemapping_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "clean" in out.stdout
+
+
+def test_entry_points_default_to_cuda(slice_setup, tmp_path):
+    """LaneMapper and stream_map run on the card unless asked otherwise,
+    and raise on a machine without one rather than carrying on."""
+    import inspect
+    from lanemapping_tpu_torch import LaneMapper
+    from lanemapping_tpu_torch.tools import stream_map
+
+    assert inspect.signature(LaneMapper).parameters["device"].default == \
+        "cuda"
+    assert stream_map.parse_args([TINY, "r"]).device == "cuda"
+    if torch.cuda.is_available():
+        assert LaneMapper(TINY).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LaneMapper(TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stream_map.main([TINY, slice_setup[0], "--from-las", "--out",
+                         str(tmp_path)])
+    assert not os.path.exists(tmp_path / "lanes_2d")
