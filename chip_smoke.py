@@ -8,8 +8,10 @@ package, and fails (non-zero exit, no result line) without a CUDA device
 or outside a checkout.  Phases, each of which fails the run:
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
-2. build K1 (``lanemapping_tpu_torch/csrc/bev_bin.cu``) with ``nvcc`` from
-   the checkout's sources, printing the build time and ``-Xptxas -v``;
+2. build K1 (``lanemapping_tpu_torch/csrc/bev_bin.cu``) and K1z
+   (``csrc/voxel_bin.cu``) with ``nvcc`` from the checkout's sources, one
+   ``nvcc`` each, started together, printing the build times and
+   ``-Xptxas -v``;
 3. K1 against its plain PyTorch version on the card at the slice's shapes
    (8 seeded lane-structured clouds of 2^19 points, 1152^2 grid): counts
    exactly equal, sums within rtol 1e-5 / atol 1e-5; CUDA-event times of
@@ -24,7 +26,24 @@ or outside a checkout.  Phases, each of which fails the run:
    batch is finite and of the expected shape;
 5. the port on the card against the port on the CPU at
    ``configs/tiny_test.py`` in float32 with TF32 off: every head map within
-   rel-max 2e-3, the same lane records (columns to 1e-3 px).
+   rel-max 2e-3, the same lane records (columns to 1e-3 px);
+6. K1z against its plain PyTorch version on the card at the LiDAR slice's
+   shapes (the first 8 clouds of phase 7's dataset, 2^19 points each,
+   576x576x10 grid, C = 4): counts exactly equal, sums within rtol 1e-5 /
+   atol 1e-5; CUDA-event times of the kernel, the plain version and one
+   ``index_put_(accumulate=True)`` call of [N, C+1] rows on precomputed
+   indices, beside the bound;
+7. the LiDAR slice at full width: 16 tiles of a seeded LaserLane dataset
+   (``data/synthetic.generate_dataset``, 1152 px, 2^19 points per cloud)
+   -> ``tools/stream_map --split infer_only`` on the LiDAR config
+   (``configs/Proj_polyline_lidarconv_vit_vertex_2.py``), seeded random
+   weights, batch 8 -> one lane JSON per tile; the launch counts are zeroed
+   just before and read just after, and K1z's must be > 0; every head map
+   of a batch is finite and of the expected shape;
+8. the port on the card against the port on the CPU at
+   ``configs/tiny_test_lidar.py`` in float32 with TF32 off: the z-fold
+   planes within 1e-5 with equal counts, every head map within rel-max
+   2e-3, the same lane records (columns to 1e-3 px).
 
 Before the last line it prints ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -41,8 +60,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(HERE, "configs", "Proj_polyline_fpn_vit_vertex_2.py")
 TINY = os.path.join(HERE, "configs", "tiny_test.py")
+LIDAR = os.path.join(HERE, "configs",
+                     "Proj_polyline_lidarconv_vit_vertex_2.py")
+TINY_LIDAR = os.path.join(HERE, "configs", "tiny_test_lidar.py")
 B, N_POINTS, IMG = 8, 1 << 19, 1152
 N_CLOUDS = 16
+GRID = (576, 576, 10)  # the LiDAR config's voxel grid, x, y, z
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at the 700 W limit
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 
@@ -116,16 +139,30 @@ def phase_card():
     return card, kind
 
 
+def reset_launches():
+    from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_sums
+    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_sums
+    bev_bin_sums.launches = voxel_bin_sums.launches = 0
+
+
+def read_launches():
+    from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_sums
+    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_sums
+    return {"bev_bin_sums": bev_bin_sums.launches,
+            "voxel_bin_sums": voxel_bin_sums.launches}
+
+
 def phase_build():
     from lanemapping_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    built = build.build_all(["bev_bin"], force=True)
-    log(f"K1 build {time.perf_counter() - t0:.3f} s (nvcc "
+    built = build.build_all(["bev_bin", "voxel_bin"], force=True)
+    log(f"K1 + K1z build {time.perf_counter() - t0:.3f} s (nvcc "
         f"{' '.join(build.NVCC_FLAGS)})")
     for name, rec in built.items():
         log(f"{name}: nvcc {rec['seconds']:.3f} s; ptxas:\n{rec['ptxas']}")
-    check(os.path.isfile(os.path.join(build.BUILD_DIR, "libbev_bin.so")),
-          "libbev_bin.so missing after the build")
+    for name in ("bev_bin", "voxel_bin"):
+        check(os.path.isfile(os.path.join(build.BUILD_DIR, f"lib{name}.so")),
+              f"lib{name}.so missing after the build")
 
 
 def phase_k1(root, pc_range):
@@ -194,32 +231,22 @@ def phase_k1(root, pc_range):
 
 
 def phase_slice(root, out_dir):
-    import numpy as np
     import torch
     from lanemapping_tpu_torch.config.config import Config
-    from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_sums
     from lanemapping_tpu_torch.models.nets import build_model
     from lanemapping_tpu_torch.ops.voxelize import bev_image_from_points
     from lanemapping_tpu_torch.tools import stream_map
     from lanemapping_tpu_torch.tools.las2bev import las2bev_params
 
-    bev_bin_sums.launches = 0
+    reset_launches()
     rec = stream_map.main([FLAGSHIP, root, "--from-las", "--batch", str(B),
                            "--out", out_dir, "--seed", "0", "--bench-json"])
-    launches = bev_bin_sums.launches
-    log(f"slice: K1 launches {launches}")
+    counts = read_launches()
+    launches = counts["bev_bin_sums"]
+    log(f"slice: launches {counts}")
     check(launches > 0, "the main path never launched K1")
     check(rec["n_tiles"] == N_CLOUDS, f"{rec['n_tiles']} tiles streamed")
-    names = sorted(os.listdir(rec["lanes_dir"]))
-    check(len(names) == N_CLOUDS, f"{len(names)} lane JSONs written")
-    n_lanes = 0
-    for n in names:
-        with open(os.path.join(rec["lanes_dir"], n)) as f:
-            recs = json.load(f)
-        for r in recs:
-            seq = np.asarray(r["seq"], np.float64)
-            check(np.isfinite(seq).all(), f"{n}: non-finite lane vertex")
-        n_lanes += len(recs)
+    names, n_lanes = check_lane_jsons(rec["lanes_dir"], N_CLOUDS)
     log(f"slice tiles/s {rec['value']:.4f} ({rec['n_tiles']} tiles, "
         f"{rec['n_batches']} batches of {rec['batch']}, "
         f"{rec['wall_s']:.4f} s, {rec['dtype']}); lanes {n_lanes}")
@@ -238,10 +265,7 @@ def phase_slice(root, out_dir):
                                   fill_iters=p["fill_iters"])
         out = model(x[..., None].expand(*x.shape, 3).to(torch.bfloat16))
     S, P = cfg.heads.row_size, cfg.heads.num_prop
-    want = {"semantic_seg": (B, IMG, IMG, 3), "endp_est": (B, IMG, IMG, 1),
-            "orient": (B, S, S, 11), "proposal_conf": (B, P, 2),
-            "ext2": (B, P, S, 3), "cls2": (B, P, S, 10),
-            "offset2": (B, P, S, 10), "prop_seg_small": (B, P, 2 * S, 20)}
+    want = head_shapes(S, P)
     check(set(out) == set(want), f"head keys {sorted(out)}")
     for k, shape in want.items():
         check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)}")
@@ -316,9 +340,219 @@ def phase_card_vs_cpu(root):
     check(n > 0, "tiny comparison produced no lane records")
 
 
+def load_lidar_batch(root, stems, n_points):
+    """Padded clouds of a LaserLane root, as its dataset loads them."""
+    import numpy as np
+    from lanemapping_tpu_torch.data.las import load_lidar_points, pad_points
+    bufs = [pad_points(load_lidar_points(os.path.join(root, "las",
+                                                      s + ".las")), n_points)
+            for s in stems]
+    return (np.stack([b[0] for b in bufs]), np.stack([b[1] for b in bufs]))
+
+
+def phase_k1z(root, stems, pc_range):
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.kernels.voxel_bin import (voxel_bin_sums,
+                                                         voxel_bin_sums_ref,
+                                                         voxel_cells)
+    pts_np, msk_np = load_lidar_batch(root, stems[:B], N_POINTS)
+    pts = torch.from_numpy(pts_np).cuda()
+    msk = torch.from_numpy(msk_np).cuda()
+    C = pts.shape[-1]
+    s, c = voxel_bin_sums(pts, msk, pc_range, GRID)
+    s_ref, c_ref = voxel_bin_sums_ref(pts, msk, pc_range, GRID)
+    torch.cuda.synchronize()
+    cnt_mismatch = int((c != c_ref).sum())
+    max_abs_err = float((s - s_ref).abs().max())
+    sums_ok = bool(torch.allclose(s, s_ref, rtol=1e-5, atol=1e-5))
+    n_valid = int(c_ref.sum())
+    log(f"K1z vs plain: {n_valid} binned points, cnt_mismatch "
+        f"{cnt_mismatch}, max_abs_err sums {max_abs_err:.3e}, allclose "
+        f"{sums_ok}; occupied voxels {int((c_ref > 0).sum())}, most points "
+        f"in one voxel {int(c_ref.max())}")
+    check(cnt_mismatch == 0, f"K1z counts differ in {cnt_mismatch} voxels")
+    check(sums_ok, f"K1z sums differ: max abs err {max_abs_err}")
+    check(n_valid > 0, "K1z binned no point")
+
+    # the library yardstick: one index_put_ of (features, 1) rows on
+    # voxel indices precomputed outside the timed call
+    X, Y, Z = GRID
+    ijk, valid = voxel_cells(pts, pc_range, GRID)
+    valid = valid & msk
+    tile = torch.arange(B, device=pts.device)[:, None]
+    lin = (((tile * Y + ijk[..., 1]) * X + ijk[..., 0]) * Z + ijk[..., 2])
+    lin = torch.where(valid, lin, 0).reshape(-1)
+    rows = torch.cat([torch.where(valid[..., None], pts, 0.0),
+                      valid[..., None].float()], -1).reshape(-1, C + 1)
+
+    def library():
+        return torch.zeros(B * Y * X * Z, C + 1,
+                           device=pts.device).index_put_(
+            (lin,), rows, accumulate=True)
+
+    lib = library().view(B, Y, X, Z, C + 1)
+    check(torch.equal(lib[..., C], c_ref), "index_put_ yardstick counts")
+    kernel = lambda: voxel_bin_sums(pts, msk, pc_range, GRID)
+    plain = lambda: voxel_bin_sums_ref(pts, msk, pc_range, GRID)
+    times = {"kernel": [], "plain": [], "library": []}
+    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
+        times[name].append(cuda_ms({"kernel": kernel, "plain": plain,
+                                    "library": library}[name], iters=10))
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    # each input read once, each output written once (the zero fill)
+    n_bytes = pts.numel() * 4 + msk.numel() + (s.numel() + c.numel()) * 4
+    # 3 sub + 3 div per point, C + 1 atomic adds per binned point
+    n_ops = 6 * B * N_POINTS + (C + 1) * n_valid
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+    log(f"K1z kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+        f"index_put_ {ms['library']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); runs {times}")
+    return {"name": "voxel_bin_sums", "route": "cuda",
+            "source": "lanemapping_tpu_torch/csrc/voxel_bin.cu",
+            "replaces": "tests/pallas_reference_bev.py:171",
+            "launches": None, "max_abs_err": max_abs_err,
+            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": ms["library"], "kernel_ms": ms["kernel"],
+            "max_abs_err_sums": max_abs_err, "cnt_mismatch": cnt_mismatch}
+
+
+def head_shapes(S, P):
+    """The raw head maps of a batch of B full-width tiles."""
+    return {"semantic_seg": (B, IMG, IMG, 3), "endp_est": (B, IMG, IMG, 1),
+            "orient": (B, S, S, 11), "proposal_conf": (B, P, 2),
+            "ext2": (B, P, S, 3), "cls2": (B, P, S, 10),
+            "offset2": (B, P, S, 10), "prop_seg_small": (B, P, 2 * S, 20)}
+
+
+def check_lane_jsons(lanes_dir, n_tiles):
+    import numpy as np
+    names = sorted(os.listdir(lanes_dir))
+    check(len(names) == n_tiles, f"{len(names)} lane JSONs written")
+    n_lanes = 0
+    for n in names:
+        with open(os.path.join(lanes_dir, n)) as f:
+            recs = json.load(f)
+        for r in recs:
+            seq = np.asarray(r["seq"], np.float64)
+            check(np.isfinite(seq).all(), f"{n}: non-finite lane vertex")
+        n_lanes += len(recs)
+    return names, n_lanes
+
+
+def phase_lidar_slice(root, stems, out_dir):
+    import torch
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.models.nets import (
+        build_model, round_weights_as_flax_promotes)
+    from lanemapping_tpu_torch.tools import stream_map
+
+    reset_launches()
+    rec = stream_map.main([LIDAR, root, "--split", "infer_only", "--batch",
+                           str(B), "--out", out_dir, "--seed", "0",
+                           "--bench-json"])
+    counts = read_launches()
+    launches = counts["voxel_bin_sums"]
+    log(f"lidar slice: launches {counts}")
+    check(launches > 0, "the LiDAR path never launched K1z")
+    check(rec["n_tiles"] == len(stems), f"{rec['n_tiles']} tiles streamed")
+    _, n_lanes = check_lane_jsons(rec["lanes_dir"], len(stems))
+    log(f"lidar slice tiles/s {rec['value']:.4f} ({rec['n_tiles']} tiles, "
+        f"{rec['n_batches']} batches of {rec['batch']}, "
+        f"{rec['wall_s']:.4f} s, {rec['dtype']}, "
+        f"{rec['points_per_tile']} points per tile); lanes {n_lanes}")
+    for stage, ms in rec["stage_ms_per_batch"].items():
+        log(f"lidar slice stage {stage} ms/batch {ms:.4f}")
+
+    # every head map of one batch through the same modules: finite, shaped
+    cfg = Config.fromfile(LIDAR)
+    model = round_weights_as_flax_promotes(build_model(cfg, seed=0))
+    model = model.to("cuda").to(memory_format=torch.channels_last)
+    pts, msk = load_lidar_batch(root, stems[:B], N_POINTS)
+    with torch.inference_mode():
+        out = model({"points": torch.from_numpy(pts).cuda(),
+                     "points_mask": torch.from_numpy(msk).cuda()})
+    S, P = cfg.heads.row_size, cfg.heads.num_prop
+    want = head_shapes(S, P)
+    check(set(out) == set(want), f"head keys {sorted(out)}")
+    for k, shape in want.items():
+        check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)}")
+        check(out[k].dtype == torch.float32, f"{k} dtype {out[k].dtype}")
+        check(bool(torch.isfinite(out[k]).all()), f"{k} is not finite")
+    log("lidar slice head maps finite with the expected shapes")
+    return launches, rec
+
+
+def phase_lidar_card_vs_cpu(root):
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.api import to_numpy
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.data.synthetic import generate_dataset
+    from lanemapping_tpu_torch.decode.lane_decode import (decode_lanes,
+                                                          host_decode_view)
+    from lanemapping_tpu_torch.decode.postprocess import lane_maps_from_decode
+    from lanemapping_tpu_torch.models.nets import build_model
+    from lanemapping_tpu_torch.ops.voxelize import voxelize_bev_zfold
+    from lanemapping_tpu_torch.tools.export_lanes import lane_records
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = Config.fromfile(TINY_LIDAR)
+    stems = generate_dataset(root, n_tiles=2, img=192, seed=11,
+                             with_points=True, points_per_tile=4096)
+    pts, msk = load_lidar_batch(root, stems, cfg.max_points)
+    grid = tuple(cfg.grid_size)
+    pc_range = cfg.lidar_point_cloud_range
+    # weight seed 2 puts every decision the host makes on these clouds at
+    # least 3.7e-3 from its threshold (proposal confidence, column argmax,
+    # the tracker's cell; measured on the CPU), far beyond float32
+    # card-vs-CPU differences
+    cpu_model = build_model(cfg, seed=2)
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    res = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        p, m = torch.from_numpy(pts).to(dev), torch.from_numpy(msk).to(dev)
+        with torch.inference_mode():
+            vox = voxelize_bev_zfold(p, m, pc_range, grid)
+            out = model({"points": p, "points_mask": m})
+            heads = {k: v.float().cpu().numpy() for k, v in out.items()}
+            dec = to_numpy(host_decode_view(decode_lanes(out, cfg)))
+        maps = lane_maps_from_decode(dec, cfg)
+        res[dev] = (vox.cpu().numpy(), heads,
+                    [lane_records(r) for r in maps["cls_offset_smooth"]])
+    (v_c, h_c, r_c), (v_g, h_g, r_g) = res["cpu"], res["cuda"]
+    check(np.allclose(v_g, v_c, rtol=1e-5, atol=1e-6),
+          "tiny LiDAR z-fold planes differ")
+    worst = 0.0
+    for k in h_c:
+        err = float(np.abs(h_g[k] - h_c[k]).max()
+                    / max(1e-3, float(np.abs(h_c[k]).max())))
+        log(f"tiny lidar card vs cpu {k}: rel-max err {err:.3e}")
+        check(err < 2e-3, f"tiny lidar {k}: rel-max err {err:.3e} >= 2e-3")
+        worst = max(worst, err)
+    n = 0
+    for g, c in zip(r_g, r_c):
+        check([(r["lane_id"], r["seq_len"]) for r in g]
+              == [(r["lane_id"], r["seq_len"]) for r in c],
+              "tiny lidar lane records differ between card and CPU")
+        for rg, rc in zip(g, c):
+            sg, sc = np.asarray(rg["seq"]), np.asarray(rc["seq"])
+            check(np.array_equal(sg[:, [0, 2]], sc[:, [0, 2]]) and
+                  np.allclose(sg[:, 1], sc[:, 1], atol=1e-3),
+                  f"tiny lidar lane {rg['lane_id']} vertices differ")
+            n += 1
+    log(f"tiny lidar card vs cpu: worst rel-max {worst:.3e}; {n} lane "
+        f"records identical (columns to 1e-3 px)")
+    check(n > 0, "tiny LiDAR comparison produced no lane records")
+
+
 def main():
     if not (os.path.isdir(os.path.join(HERE, "lanemapping_tpu_torch", "csrc"))
-            and os.path.isfile(FLAGSHIP) and os.path.isfile(TINY)):
+            and all(os.path.isfile(c) for c in (FLAGSHIP, TINY, LIDAR,
+                                                 TINY_LIDAR))):
         print("[chip_smoke] FAIL: run from the root of a lanemapping_tpu "
               "checkout (lanemapping_tpu_torch/ and configs/ beside this "
               "script)", file=sys.stderr)
@@ -332,6 +566,7 @@ def main():
     t_start = time.perf_counter()
     card, kind = phase_card()
     phase_build()
+    from lanemapping_tpu_torch.data.synthetic import generate_dataset
     from lanemapping_tpu_torch.tools.las2bev import DEFAULT_PC_RANGE
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = os.path.join(tmp, "flagship")
@@ -342,9 +577,21 @@ def main():
         k1 = phase_k1(root, DEFAULT_PC_RANGE)
         k1["launches"], _ = phase_slice(root, os.path.join(tmp, "out"))
         phase_card_vs_cpu(os.path.join(tmp, "tiny"))
+
+        lidar_root = os.path.join(tmp, "lidar")
+        t0 = time.perf_counter()
+        stems = generate_dataset(lidar_root, n_tiles=N_CLOUDS, img=IMG,
+                                 seed=7, with_points=True,
+                                 points_per_tile=N_POINTS)
+        log(f"wrote a LaserLane dataset of {N_CLOUDS} tiles with clouds of "
+            f"{N_POINTS} points in {time.perf_counter() - t0:.3f} s")
+        k1z = phase_k1z(lidar_root, stems, DEFAULT_PC_RANGE)
+        k1z["launches"], _ = phase_lidar_slice(
+            lidar_root, stems, os.path.join(tmp, "out_lidar"))
+        phase_lidar_card_vs_cpu(os.path.join(tmp, "tiny_lidar"))
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1z]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,9 @@ It mirrors the JAX package's module paths and names, imports ``torch`` and
 never ``jax`` nor ``lanemapping_tpu`` (what it needs of the JAX package's
 NumPy-only modules it keeps as its own copies), and runs its entry points on
 the card (``device="cuda"``) unless the caller asks for the CPU.  The TPU
-kernel on the ported path (K1, BEV binning) is a hand-written CUDA kernel,
-``csrc/bev_bin.cu``, built with ``nvcc`` at first use.
+kernel of the ported paths (BEV binning) is two hand-written CUDA kernels,
+built with ``nvcc`` at first use: K1 (``csrc/bev_bin.cu``, the LAS
+rasterizer) and K1z (``csrc/voxel_bin.cu``, the LiDAR z-fold voxelizer).
 """
 
 from .config.config import Config, ConfigDict  # noqa: F401
@@ -15,8 +16,9 @@ from .registry import (BACKBONE, DATASETS, HEADS, NET, PCENCODER,  # noqa: F401
                        build_heads, build_net, build_pcencoder)
 
 # importing model/data modules populates the registries
-from .models import column_head, nets, resnet_fpn, vit  # noqa: F401,E402
-from .data import las_tiles  # noqa: F401,E402
+from .models import (column_head, lidar_encoder, nets,  # noqa: F401,E402
+                     resnet_fpn, vit)
+from .data import las_tiles, laserlane  # noqa: F401,E402
 from .models.nets import build_model  # noqa: F401,E402
 from .api import LaneMapper  # noqa: F401,E402
 

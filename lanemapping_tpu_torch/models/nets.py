@@ -1,7 +1,8 @@
 """Composition root Detector1stage (port of `lanemapping_tpu/models/nets.py`,
 reference `net/detector1stage.py:10-67`): pcencoder -> (optional) global
-correlator -> lane head.  Image input only; the LiDAR encoder and the
-Segmentor wait for later slices.
+correlator -> lane head.  The input is an image tile, or, for the LiDAR
+encoder, a raw-point dict ``{"points": [B,N,4], "points_mask": [B,N]}``
+(`nets.py:31-34` there).  The Segmentor waits for a later slice.
 
 ``Detector1stage.forward`` keeps the JAX package's layout at its boundary:
 the tile comes in NHWC [B, H, W, 3] and the image-shaped outputs
@@ -31,10 +32,15 @@ class Detector1stage(nn.Module):
         self.heads = heads
         self.vit_seg = vit_seg
 
-    def forward(self, proj: torch.Tensor):
-        """[B, H, W, 3] tile -> raw head map dict (NHWC image maps)."""
-        x = proj.permute(0, 3, 1, 2)
-        fea, fea_up, bi_seg, endp_est = self.pcencoder(x)
+    def forward(self, proj):
+        """[B, H, W, 3] tile, or the raw-point dict of the LiDAR encoder ->
+        raw head map dict (NHWC image maps)."""
+        if isinstance(proj, dict):
+            fea, fea_up, bi_seg, endp_est = self.pcencoder(
+                proj["points"], proj.get("points_mask"))
+        else:
+            fea, fea_up, bi_seg, endp_est = self.pcencoder(
+                proj.permute(0, 3, 1, 2))
         if self.vit_seg and self.backbone is not None:
             fea = self.backbone(fea)
         out = self.heads(fea, fea_up, endp_est)
@@ -73,6 +79,37 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         for name, p in model.named_parameters():
             if name.endswith("pos_embedding"):
                 p.normal_(generator=generator)
+    return model
+
+
+def round_weights_as_flax_promotes(model: nn.Module) -> nn.Module:
+    """What the JAX streaming script computes when it casts a bf16 config's
+    weights to bf16 and feeds the net float32 input (the LiDAR path,
+    `tools/stream_map.py:96-100,131-133` there): flax promotes every layer
+    to float32, so the weights are bf16-rounded and the compute is float32,
+    except BatchNorm's inference multiplier, which flax takes from the bf16
+    running variance: ``rsqrt(var + eps)`` rounds to bf16 (XLA on the CPU
+    then multiplies it by the scale in float32).
+
+    In place on ``model`` (float32): every floating parameter and buffer is
+    rounded to bf16, and each BatchNorm's multiplier is taken as above and
+    stored in its weight, with running variance 1.
+    """
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            if t.is_floating_point():
+                t.copy_(t.to(bf16))
+        for m in model.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm) \
+                    and m.running_var is not None:
+                # each bf16 op rounds a float32 result, as XLA computes it
+                eps = torch.tensor(m.eps, dtype=bf16).float()
+                var = (m.running_var.float() + eps).to(bf16).float()
+                inv = (1.0 / torch.sqrt(var)).to(bf16).float()
+                # the layer divides by sqrt(1 + eps): carry that factor
+                m.weight.mul_(inv * (1.0 + m.eps) ** 0.5)
+                m.running_var.fill_(1.0)
     return model
 
 

@@ -1,4 +1,4 @@
-"""Bilinear resize with ``align_corners=True`` semantics.
+"""Bilinear resize with ``align_corners=True`` semantics, and bicubic.
 
 Port of `lanemapping_tpu/ops/interp.py`.  The JAX package wrote the resize
 as two dense 1-D operator matmuls because gathers map poorly onto the TPU
@@ -7,6 +7,9 @@ as two dense 1-D operator matmuls because gathers map poorly onto the TPU
 what the reference uses.  The small NumPy operators stay: the column head
 applies the fused upsample-then-avgpool operator to its narrow proposal
 windows, where a [S, 2S] x [2S, 2W] product is the cheapest form.
+``resize_bicubic`` (the LiDAR encoder's ``ref_exact_bicubic_upsample``)
+applies the JAX package's bicubic operators, copied, so both packages
+compute the same taps and border clamps.
 
 Layout: torch NCHW (``...CHW``), where the JAX package used NHWC.
 """
@@ -40,6 +43,49 @@ def _interp_matrix_np(n_in: int, n_out: int) -> np.ndarray:
     m[np.arange(n_out), lo] = (1.0 - frac).astype(np.float32)
     m[np.arange(n_out), lo + 1] = frac.astype(np.float32)
     return m
+
+
+@functools.lru_cache(maxsize=None)
+def _cubic_interp_matrix_np(n_in: int, n_out: int,
+                            align_corners: bool = False,
+                            a: float = -0.75) -> np.ndarray:
+    """[n_out, n_in] bicubic (Keys, a=-0.75) interpolation operator matching
+    ``F.interpolate(mode='bicubic')`` semantics (reference
+    `pcencoder/lidarencoder.py:72`).  Border taps clamp (replicate), like
+    PyTorch."""
+    if n_in == 1:
+        return np.ones((n_out, 1), dtype=np.float32)
+    if align_corners:
+        src = np.arange(n_out, dtype=np.float64) * (n_in - 1) / max(n_out - 1,
+                                                                    1)
+    else:
+        src = (np.arange(n_out, dtype=np.float64) + 0.5) * n_in / n_out - 0.5
+
+    def kernel(t):
+        t = np.abs(t)
+        return np.where(t <= 1.0, (a + 2) * t ** 3 - (a + 3) * t ** 2 + 1,
+                        np.where(t < 2.0,
+                                 a * t ** 3 - 5 * a * t ** 2 + 8 * a * t
+                                 - 4 * a, 0.0))
+
+    lo = np.floor(src).astype(np.int64)
+    m = np.zeros((n_out, n_in), dtype=np.float64)
+    rows = np.arange(n_out)
+    for tap in (-1, 0, 1, 2):
+        idx = lo + tap
+        np.add.at(m, (rows, np.clip(idx, 0, n_in - 1)), kernel(src - idx))
+    return m.astype(np.float32)
+
+
+def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int,
+                   align_corners: bool = False) -> torch.Tensor:
+    """Bicubic resize of ``...HW`` tensors as two operator products."""
+    h, w = x.shape[-2], x.shape[-1]
+    mh = torch.as_tensor(_cubic_interp_matrix_np(h, out_h, align_corners),
+                         dtype=x.dtype, device=x.device)
+    mw = torch.as_tensor(_cubic_interp_matrix_np(w, out_w, align_corners),
+                         dtype=x.dtype, device=x.device)
+    return mh @ x @ mw.T
 
 
 @functools.lru_cache(maxsize=None)

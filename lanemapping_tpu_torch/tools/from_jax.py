@@ -6,6 +6,9 @@ copied here, applied backwards.  The port's parameter names are the
 reference's torch names, so the result loads with ``load_state_dict``, and
 a reference ``.pth`` loads the same way without this module.
 
+The LiDAR encoder has no torch reference (the reference's spconv encoder
+has no dense counterpart): its torch names are the flax module names.
+
 Layouts: flax conv HWIO -> torch OIHW; Dense [I,O] -> Linear [O,I];
 Dense [I,O] -> Conv1d(k=1) [O,I,1]; BatchNorm scale/bias + batch_stats
 mean/var -> weight/bias/running_mean/running_var.
@@ -70,11 +73,32 @@ def _transformer_rules(t_prefix: str, j_prefix: str, depth: int) -> list:
     return R
 
 
-def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3) -> list:
-    """(torch_key, flax_path, inverse layout) triples for Detector1stage
-    with PostProjector2 + VitSegNet + ColumnProposal2 (live path).  Rules
-    whose flax path is absent (a missing trunk stage, an unused lateral)
-    are skipped by ``params_from_jax``."""
+def _lidar_encoder_rules() -> list:
+    """LidarEncoder: the torch names are the flax module names."""
+    R = []
+    zf = "pcencoder.zfold_encoder"
+    jz = "pcencoder/zfold_encoder"
+    R += [(f"{zf}.stem.weight", f"{jz}/stem/kernel", _conv_inv),
+          (f"{zf}.stem_bn", f"{jz}/stem_bn", "bn"),
+          (f"{zf}.out.weight", f"{jz}/out/kernel", _conv_inv),
+          (f"{zf}.out.bias", f"{jz}/out/bias", None)]
+    for i in range(3):
+        for conv in ("conv1", "conv2", "proj"):
+            R.append((f"{zf}.s{i}_{conv}.weight", f"{jz}/s{i}_{conv}/kernel",
+                      _conv_inv))
+        for bn in ("bn1", "bn2", "proj_bn"):
+            R.append((f"{zf}.s{i}_{bn}", f"{jz}/s{i}_{bn}", "bn"))
+    for conv in ("fea_aligner", "fea_conv", "output_layer_binary_seg",
+                 "output_layer_endp", "output_layer_fea"):
+        R += [(f"pcencoder.{conv}.weight", f"pcencoder/{conv}/kernel",
+               _conv_inv),
+              (f"pcencoder.{conv}.bias", f"pcencoder/{conv}/bias", None)]
+    for bn in ("fea_aligner_bn", "fea_conv_bn"):
+        R.append((f"pcencoder.{bn}", f"pcencoder/{bn}", "bn"))
+    return R
+
+
+def _postprojector2_rules(resnet_layers) -> list:
     R = []
     enc, fpn = "pcencoder", "pcencoder.fpn"
     R += [(f"{fpn}.conv1.weight", f"{enc}/conv1/kernel", _conv_inv),
@@ -91,7 +115,18 @@ def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3) -> list:
     for gn in ("gn11", "gn12", "gn21", "gn22"):
         R += [(f"{fpn}.{gn}.weight", f"{enc}/{gn}/scale", None),
               (f"{fpn}.{gn}.bias", f"{enc}/{gn}/bias", None)]
+    return R
 
+
+def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
+                pcencoder="PostProjector2") -> list:
+    """(torch_key, flax_path, inverse layout) triples for Detector1stage
+    with PostProjector2 or LidarEncoder + VitSegNet + ColumnProposal2 (live
+    path).  Rules whose flax path is absent (a missing trunk stage, an
+    unused lateral, a projection the encoder does not have) are skipped by
+    ``params_from_jax``."""
+    R = _lidar_encoder_rules() if pcencoder == "LidarEncoder" \
+        else _postprojector2_rules(resnet_layers)
     bb = "backbone"
     R += [(f"{bb}.to_patch_embedding.1.weight", f"{bb}/patch_embed/kernel",
            _dense_inv),
@@ -172,11 +207,13 @@ def params_from_jax(params: Dict, batch_stats: Dict, rules=None
 
 
 def rules_for(cfg) -> list:
-    """``build_rules`` sized to a config's trunk and correlator depth."""
+    """``build_rules`` sized to a config's encoder, trunk and correlator
+    depth."""
     from ..models.resnet_fpn import RESNET_LAYERS
     return build_rules(
         resnet_layers=RESNET_LAYERS[cfg.pcencoder.get("resnet", "resnet34")],
-        vit_depth=cfg.backbone.get("depth", 3) if "backbone" in cfg else 0)
+        vit_depth=cfg.backbone.get("depth", 3) if "backbone" in cfg else 0,
+        pcencoder=cfg.pcencoder.type)
 
 
 def load_jax_weights(model: torch.nn.Module, params: Dict, batch_stats: Dict,

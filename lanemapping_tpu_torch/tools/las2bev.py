@@ -1,11 +1,28 @@
-"""Las2BEV settings (the ``las2bev_params`` of
-`lanemapping_tpu/tools/las2bev.py`, copied).  The rasterization itself is
-`ops/voxelize.py::bev_image_from_points`; the offline PNG writer waits for a
-later slice."""
+"""Offline Las2BEV: raw ``.las`` survey tiles -> BEV intensity PNGs, on the
+card.
+
+Port of `lanemapping_tpu/tools/las2bev.py`: ``las2bev_params`` is copied,
+and ``convert_las_directory`` runs the rasterize + hole-fill +
+intensity-calibration pipeline (`ops/voxelize.py::bev_image_from_points`,
+on the K1 binning kernel) batched on ``device`` (the card unless the caller
+asks for the CPU) and writes tiles in the ``cropped_tiff`` layout the image
+datasets load.
+
+For streaming inference the PNG intermediate is not needed:
+`tools/stream_map.py --from-las` runs the same rasterization in front of
+the network.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+import os.path as osp
+import time
+from glob import glob
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
 
 DEFAULT_PC_RANGE = (-15.0, -25.0, -2.0, 15.0, 25.0, 2.0)
 DEFAULT_GAIN = 0.900
@@ -25,3 +42,60 @@ def las2bev_params(cfg=None) -> Dict:
     p.setdefault("bias", DEFAULT_BIAS)
     p.setdefault("fill_iters", 6)
     return p
+
+
+def convert_las_directory(las_dir: str, out_dir: str, img: int = 1152,
+                          pc_range: Sequence[float] = DEFAULT_PC_RANGE,
+                          gain: float = DEFAULT_GAIN,
+                          bias: float = DEFAULT_BIAS,
+                          fill_iters: int = 6,
+                          max_points: int = 1 << 19,
+                          batch: int = 4,
+                          stems: Optional[List[str]] = None,
+                          device: Union[str, torch.device] = "cuda") -> Dict:
+    """Rasterize every ``.las`` under ``las_dir`` to ``out_dir/<stem>.png``
+    (3 identical uint8 channels), ``batch`` clouds per call on ``device``.
+    Returns throughput stats."""
+    from PIL import Image
+
+    from ..api import resolve_device
+    from ..data.las import load_lidar_points, pad_points
+    from ..ops.voxelize import bev_image_from_points
+
+    device = resolve_device(device)
+    if stems is None:
+        stems = sorted(osp.basename(p)[:-4]
+                       for p in glob(osp.join(las_dir, "*.las")))
+    if not stems:
+        raise FileNotFoundError(f"no .las files under {las_dir}")
+    os.makedirs(out_dir, exist_ok=True)
+
+    n_pts_total, t0 = 0, time.time()
+    written = []
+    for i in range(0, len(stems), batch):
+        chunk = stems[i:i + batch]
+        pts = np.zeros((len(chunk), max_points, 4), np.float32)
+        msk = np.zeros((len(chunk), max_points), bool)
+        for j, stem in enumerate(chunk):
+            p = load_lidar_points(osp.join(las_dir, stem + ".las"))
+            pts[j], msk[j] = pad_points(p, max_points)
+            n_pts_total += min(len(p), max_points)
+        with torch.inference_mode():
+            x = bev_image_from_points(
+                torch.from_numpy(pts).to(device),
+                torch.from_numpy(msk).to(device), pc_range, img, gain=gain,
+                bias=bias, fill_iters=fill_iters)
+            tiles = torch.round(x * 255.0).to(torch.uint8).cpu().numpy()
+        for j, stem in enumerate(chunk):
+            # replicate to 3 channels: the cropped_tiff convention the image
+            # datasets expect (ref `laserlane_proposals.py:85-98`)
+            rgb = np.repeat(tiles[j][:, :, None], 3, axis=2)
+            path = osp.join(out_dir, stem + ".png")
+            Image.fromarray(rgb).save(path)
+            written.append(path)
+    dt = time.time() - t0
+    return {"n_tiles": len(written), "n_points": n_pts_total,
+            "wall_s": round(dt, 2),
+            "tiles_per_sec": round(len(written) / max(dt, 1e-9), 2),
+            "points_per_sec": round(n_pts_total / max(dt, 1e-9), 0),
+            "out_dir": out_dir, "written": written}

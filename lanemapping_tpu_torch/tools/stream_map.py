@@ -1,24 +1,39 @@
-"""Streaming lane mapping on the card: raw ``.las`` clouds -> lane JSONs.
+"""Streaming lane mapping on the card: a dataset or raw ``.las`` clouds ->
+lane JSONs.
 
-Port of `tools/stream_map.py --from-las` (`:119-158` there).  Per batch of
-clouds: upload the padded point buffers, rasterize them on the card into
-the BEV tile (`ops/voxelize.py::bev_image_from_points`, on the K1 binning
-kernel), run the network in ``cfg.compute_dtype`` (bf16 on the flagship),
-decode in float32, and hand the host postprocess (tracker, NMS, semantics,
-lane JSON) to a worker pool while the next batch runs on the card.
+Port of `tools/stream_map.py` (`:72-83, :119-158, :194-207` there).  Three
+inputs, one per kind of config:
+
+- ``--from-las`` (image configs): raw clouds from ``LasTiles``; each batch
+  is rasterized on the card into the BEV tile
+  (`ops/voxelize.py::bev_image_from_points`, on the K1 kernel).
+- a LiDAR config (``use_lidar``): ``cfg.dataset.test`` (the
+  ``LaserLaneProposalEgo`` dataset) with ``mode=--split``; the padded
+  points and their mask go up as they are and the LidarEncoder voxelizes
+  them on the card (K1z).  ``--from-las`` is refused here, as the JAX
+  script cannot run that combination either.
+- an image config without ``--from-las``: ``cfg.dataset.test`` image tiles,
+  uploaded as uint8 (one channel when the batch is mono), divided by 255 in
+  float32 on the card and then cast to the compute dtype.
+
+``--split infer_only`` skips the label build.  The network runs in
+``cfg.compute_dtype`` (bf16 on the flagship), except on the LiDAR path,
+which computes what the JAX script computes there: float32 on bf16-rounded
+weights (`models/nets.py::round_weights_as_flax_promotes`).  Decode runs in
+float32, and the host postprocess (tracker, NMS, semantics, lane JSON) runs
+on a worker pool while the next batch runs on the card.
 
     python -m lanemapping_tpu_torch.tools.stream_map <config> <data_root> \\
-        --from-las [--ckpt model.pth] [--batch 8] [--device cuda]
+        [--from-las] [--split infer_only] [--ckpt model.pth] [--batch 8] \\
+        [--device cuda]
 
-``<data_root>/las/*.las`` (or ``<data_root>/*.las``) are the clouds; one
-``<out>/lanes_2d/<stem>.json`` is written per tile.  Without ``--ckpt`` the
-weights are random, drawn from ``--seed`` (default ``cfg.seed``).  The
-image-tile input of the JAX script (the LaserLane dataset) is not ported
-yet: `api.LaneMapper.map_tiles` maps image tiles.
+One ``<out>/lanes_2d/<name>.json`` is written per tile.  Without ``--ckpt``
+the weights are random, drawn from ``--seed`` (default ``cfg.seed``).
 
 ``main`` returns the run's numbers: tiles/s, and per stage the milliseconds
-per batch (device time from CUDA events for upload, rasterize, forward and
-decode; host time for the postprocess workers).
+per batch (device time from CUDA events for upload, the input stage
+(rasterize, voxelize or normalize), forward and decode; host time for the
+postprocess workers).
 """
 
 from __future__ import annotations
@@ -34,7 +49,10 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-STAGES = ("upload", "rasterize", "forward", "decode")
+# the device stages of each input path, in order
+STAGES = {"las": ("upload", "rasterize", "forward", "decode"),
+          "lidar": ("upload", "voxelize", "forward", "decode"),
+          "image": ("upload", "normalize", "forward", "decode")}
 
 
 class StageClock:
@@ -68,9 +86,12 @@ class StageClock:
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("config")
-    ap.add_argument("data_root", help="root holding las/*.las or *.las")
+    ap.add_argument("data_root", help="dataset root (cropped_tiff/, las/, "
+                    "labels/) or, with --from-las, a root holding las/*.las "
+                    "or *.las")
     ap.add_argument("--from-las", action="store_true",
-                    help="stream raw .las clouds (the only input ported)")
+                    help="stream raw .las clouds into an image config, "
+                    "rasterized on the card")
     ap.add_argument("--ckpt", default=None, help="torch state_dict (.pth)")
     ap.add_argument("--out", default="./map_out")
     ap.add_argument("--split", default="all")
@@ -85,6 +106,16 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def to_u8(proj: np.ndarray) -> np.ndarray:
+    """[B,H,W,3] float tiles in [0, 1] -> uint8, one channel when the batch
+    is mono (`tools/stream_map.py:194-201` there): dividing by 255 on the
+    card gives back the same float32 values."""
+    from ..engine.state import is_mono_batch
+
+    a = np.rint(np.asarray(proj) * 255.0).astype(np.uint8)
+    return np.ascontiguousarray(a[..., :1]) if is_mono_batch(a) else a
+
+
 def main(argv=None) -> Dict:
     args = parse_args(argv)
     from ..api import load_checkpoint, resolve_device
@@ -93,32 +124,44 @@ def main(argv=None) -> Dict:
     from ..data.loader import Loader
     from ..decode.lane_decode import decode_lanes, host_decode_view
     from ..decode.postprocess import lane_maps_from_decode
-    from ..models.nets import build_model
+    from ..models.nets import build_model, round_weights_as_flax_promotes
     from ..ops.voxelize import bev_image_from_points
+    from ..registry import build_dataset
     from .export_lanes import lane_records
     from .las2bev import las2bev_params
 
-    if not args.from_las:
-        raise SystemExit("[stream_map] only --from-las is ported; map image "
-                         "tiles with lanemapping_tpu_torch.LaneMapper")
-    device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     if args.overrides:
         cfg.merge_from_dict(parse_dict_action(args.overrides))
     if args.batch:
         cfg.batch_size = args.batch
+    use_lidar = bool(cfg.get("use_lidar", False))
+    if args.from_las and use_lidar:
+        raise SystemExit(
+            "[stream_map] --from-las rasterizes clouds into BEV tiles for an "
+            "image config; a LiDAR config reads its clouds through "
+            "cfg.dataset.test: drop --from-las")
+    kind = "las" if args.from_las else "lidar" if use_lidar else "image"
+    device = resolve_device(args.device)
 
     model = build_model(cfg, seed=cfg.get("seed", 0)
                         if args.seed is None else args.seed)
     if args.ckpt:
         load_checkpoint(model, args.ckpt)
-    dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" \
-        else torch.float32
+    bf16 = cfg.get("compute_dtype") == "bfloat16"
+    dtype = torch.bfloat16 if bf16 and not use_lidar else torch.float32
+    if bf16 and use_lidar:
+        round_weights_as_flax_promotes(model)
     model = model.to(device=device, dtype=dtype)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 
-    ds = LasTiles(args.data_root, mode=args.split, cfg=cfg)
+    if args.from_las:
+        ds = LasTiles(args.data_root, mode=args.split, cfg=cfg)
+    else:
+        for split in ("train", "val", "test"):
+            cfg.dataset[split]["data_root"] = args.data_root
+        ds = build_dataset(dict(cfg.dataset.test, mode=args.split), cfg)
     loader = Loader(ds, batch_size=cfg.batch_size, shuffle=False,
                     drop_last=False, num_threads=8, prefetch=3)
     lanes_dir = os.path.join(args.out, "lanes_2d")
@@ -127,21 +170,39 @@ def main(argv=None) -> Dict:
     img = cfg.list_img_size_xy[0]
     need_detail = bool(cfg.get("view_detail", False))
     clock = StageClock(device)
+    voxelized = []  # the clock mark at the end of the LiDAR voxelize stage
+    if kind == "lidar":
+        model.pcencoder.zfold_encoder.register_forward_pre_hook(
+            lambda module, inputs: voxelized.append(clock.now()))
 
     def fwd_dec(batch, timed: bool):
-        """One batch on the card: upload, rasterize, forward, decode."""
+        """One batch on the card: upload, input stage, forward, decode."""
+        if kind == "image":
+            host = (to_u8(batch["proj"]),)
+        else:
+            host = (np.asarray(batch["points"], np.float32),
+                    np.asarray(batch["points_mask"], bool))
         t = [clock.now()]
-        pts = torch.from_numpy(np.asarray(batch["points"], np.float32))
-        msk = torch.from_numpy(np.asarray(batch["points_mask"], bool))
-        pts, msk = pts.to(device), msk.to(device)
+        dev = [torch.from_numpy(a).to(device) for a in host]
         t.append(clock.now())
         with torch.inference_mode():
-            x = bev_image_from_points(
-                pts, msk, las_p["pc_range"], img, gain=las_p["gain"],
-                bias=las_p["bias"], fill_iters=las_p["fill_iters"])
-            x = x[..., None].to(dtype).expand(*x.shape, 3).contiguous()
-            t.append(clock.now())
-            out = model(x)
+            if kind == "lidar":
+                voxelized.clear()
+                out = model({"points": dev[0], "points_mask": dev[1]})
+                t.append(voxelized[0])
+            else:
+                if kind == "las":
+                    x = bev_image_from_points(
+                        *dev, las_p["pc_range"], img, gain=las_p["gain"],
+                        bias=las_p["bias"], fill_iters=las_p["fill_iters"])
+                    x = x[..., None]
+                else:
+                    # exact /255 in float32, then the compute dtype
+                    x = dev[0].float() / 255.0
+                x = x.to(dtype)
+                x = x.expand(*x.shape[:-1], 3).contiguous()
+                t.append(clock.now())
+                out = model(x)
             t.append(clock.now())
             keep = host_decode_view(decode_lanes(out, cfg))
             if not need_detail:
@@ -155,7 +216,7 @@ def main(argv=None) -> Dict:
             keep["orient"] = keep["orient"].to(torch.int8)
             t.append(clock.now())
         if timed:
-            for stage, a, b in zip(STAGES, t[:-1], t[1:]):
+            for stage, a, b in zip(STAGES[kind], t[:-1], t[1:]):
                 clock.add(stage, a, b)
         return keep
 
@@ -182,7 +243,7 @@ def main(argv=None) -> Dict:
     stream = itertools.islice(iter(loader), args.max_batches)
     head = next(stream, None)
     if head is None:
-        raise SystemExit("[stream_map] no clouds to process")
+        raise SystemExit("[stream_map] no tiles to process")
     # warm-up outside the timed region on the stream's own first batch,
     # which is then processed again inside the timed loop: builds the CUDA
     # kernels and the native tracker, picks the convolution algorithms
@@ -213,7 +274,8 @@ def main(argv=None) -> Dict:
         "metric": "e2e_tiles_per_sec", "value": tiles_s, "unit": "tiles/s",
         "device": str(device), "n_tiles": n_tiles, "n_batches": n_batches,
         "batch": cfg.batch_size, "wall_s": wall, "km_lane_per_hour": km_lane_h,
-        "points_per_tile": ds.max_points, "stage_ms_per_batch": stage_ms,
+        "input": kind, "points_per_tile": getattr(ds, "max_points", None),
+        "stage_ms_per_batch": stage_ms,
         "dtype": str(dtype).replace("torch.", ""),
         "weights": os.path.abspath(args.ckpt) if args.ckpt else "random-init",
         "lanes_dir": lanes_dir,

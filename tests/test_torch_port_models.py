@@ -94,24 +94,28 @@ def test_detector_matches_jax(tiny):
         assert rel_max_err(got[k].numpy(), want[k]) < TOL, k
 
 
-@pytest.mark.parametrize("cfg_name", ["tiny_test.py",
-                                      "Proj_polyline_fpn_vit_vertex_2.py"])
+@pytest.mark.parametrize("cfg_name", [
+    "tiny_test.py", "Proj_polyline_fpn_vit_vertex_2.py", "tiny_test_lidar.py",
+    "Proj_polyline_lidarconv_vit_vertex_2.py"])
 def test_params_from_jax_covers_every_weight(cfg_name):
     """Every parameter and buffer of the port model (BatchNorm's
     num_batches_tracked aside) is carried from the flax trees, with the
-    layout the port expects — for the tiny and the flagship config."""
+    layout the port expects — for the tiny and the full flagship and LiDAR
+    configs."""
     import os
     import lanemapping_tpu as lm
     import lanemapping_tpu_torch as lmt
     from lanemapping_tpu_torch.tools.from_jax import (load_jax_weights,
                                                       params_from_jax,
                                                       rules_for)
-    from torch_port_helpers import REPO
+    from torch_port_helpers import REPO, lidar_example
 
     cfg_j, cfg_t = configs(os.path.join(REPO, "configs", cfg_name))
     img = cfg_j.list_img_size_xy[0]
-    variables = random_variables(lm.build_model(cfg_j),
-                                 (jnp.zeros((1, img, img, 3)),), seed=6)
+    lidar = cfg_j.get("use_lidar", False)
+    example = lidar_example(cfg_j.get("max_points", 1 << 19)) if lidar \
+        else jnp.zeros((1, img, img, 3))
+    variables = random_variables(lm.build_model(cfg_j), (example,), seed=6)
     tmodel = lmt.build_model(cfg_t)
     load_jax_weights(tmodel, variables["params"], variables["batch_stats"],
                      cfg_t)
@@ -119,9 +123,21 @@ def test_params_from_jax_covers_every_weight(cfg_name):
                          rules_for(cfg_t))
     # spot-check layouts: conv HWIO -> OIHW, dense [I,O] -> [O,I]
     p = variables["params"]
-    np.testing.assert_array_equal(
-        sd["pcencoder.fpn.conv1.weight"].numpy(),
-        np.transpose(p["pcencoder"]["conv1"]["kernel"], (3, 2, 0, 1)))
+    if lidar:
+        np.testing.assert_array_equal(
+            sd["pcencoder.zfold_encoder.stem.weight"].numpy(),
+            np.transpose(p["pcencoder"]["zfold_encoder"]["stem"]["kernel"],
+                         (3, 2, 0, 1)))
+        np.testing.assert_array_equal(
+            sd["pcencoder.fea_conv_bn.running_mean"].numpy(),
+            variables["batch_stats"]["pcencoder"]["fea_conv_bn"]["mean"])
+        grid = cfg_t.grid_size
+        assert sd["pcencoder.zfold_encoder.stem.weight"].shape[1] == \
+            grid[2] * 4
+    else:
+        np.testing.assert_array_equal(
+            sd["pcencoder.fpn.conv1.weight"].numpy(),
+            np.transpose(p["pcencoder"]["conv1"]["kernel"], (3, 2, 0, 1)))
     np.testing.assert_array_equal(
         sd["heads.cls2.0.weight"].numpy()[:, :, 0],
         p["heads"]["cls2_fc1"]["kernel"].T)

@@ -18,7 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_helpers import REPO, TINY, tiny_models
+from torch_port_helpers import (REPO, TINY, assert_clear_of_thresholds,
+                                assert_same_records, tiny_models)
 
 N_POINTS = 1 << 15
 # seed 0's decoded values sit clear of every decision threshold (asserted
@@ -81,34 +82,6 @@ def jax_chain(root, jmodel, variables, cfg):
     return x, dec, [lane_records(m) for m in maps["cls_offset_smooth"]]
 
 
-def assert_clear_of_thresholds(dec, cfg, margin=1e-4):
-    """Proposal confidence off its threshold; at every vertex the host
-    keeps, the column argmax off a tie and the column off an integer (the
-    tracker truncates it to a cell)."""
-    conf = dec["prop_conf"][..., 1]
-    assert np.abs(conf - cfg.proposal_obj_thre).min() > margin
-    kept = (conf >= cfg.proposal_obj_thre)[..., None] \
-        & (dec["prop_v_ext"] > 0.5)
-    probs = np.sort(dec["prop_cls_conf"], axis=-1)
-    assert (probs[..., -1] - probs[..., -2])[kept].min() > margin
-    coors = dec["cls_offset"] / cfg.heads.row_size * 192
-    frac = np.abs(coors - np.round(coors))
-    assert frac[kept & (coors > 0)].min() > margin
-
-
-def assert_same_records(got, want):
-    """Same lanes, vertex rows and semantics; columns to 1e-3 px (float32
-    rounding differs between the packages)."""
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert [(r["lane_id"], r["seq_len"]) for r in g] == \
-            [(r["lane_id"], r["seq_len"]) for r in w]
-        for rg, rw in zip(g, w):
-            sg, sw = np.asarray(rg["seq"]), np.asarray(rw["seq"])
-            np.testing.assert_array_equal(sg[:, [0, 2]], sw[:, [0, 2]])
-            np.testing.assert_allclose(sg[:, 1], sw[:, 1], atol=1e-3)
-
-
 def test_slice_las_to_lane_records_matches_jax(slice_setup):
     from lanemapping_tpu_torch import LaneMapper
     from lanemapping_tpu_torch.data.las_tiles import LasTiles
@@ -163,6 +136,13 @@ def test_import_loads_no_jax_and_no_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "new = ['kernels.voxel_bin', 'models.lidar_encoder',\n"
+        "       'data.laserlane', 'data.label_gen', 'data.proposal_gt',\n"
+        "       'data.synthetic', 'engine.state', 'tools.las2bev',\n"
+        "       'tools.stream_map']\n"
+        "missing = [m for m in new\n"
+        "           if p.__name__ + '.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
         "                                    'lanemapping_tpu'))\n"
@@ -176,15 +156,19 @@ def test_import_loads_no_jax_and_no_jax_package():
 
 
 def test_entry_points_default_to_cuda(slice_setup, tmp_path):
-    """LaneMapper and stream_map run on the card unless asked otherwise,
-    and raise on a machine without one rather than carrying on."""
+    """LaneMapper, stream_map and convert_las_directory run on the card
+    unless asked otherwise, and raise on a machine without one rather than
+    carrying on."""
     import inspect
     from lanemapping_tpu_torch import LaneMapper
     from lanemapping_tpu_torch.tools import stream_map
+    from lanemapping_tpu_torch.tools.las2bev import convert_las_directory
 
     assert inspect.signature(LaneMapper).parameters["device"].default == \
         "cuda"
     assert stream_map.parse_args([TINY, "r"]).device == "cuda"
+    assert inspect.signature(convert_las_directory).parameters[
+        "device"].default == "cuda"
     if torch.cuda.is_available():
         assert LaneMapper(TINY).device.type == "cuda"
         return
@@ -194,3 +178,7 @@ def test_entry_points_default_to_cuda(slice_setup, tmp_path):
         stream_map.main([TINY, slice_setup[0], "--from-las", "--out",
                          str(tmp_path)])
     assert not os.path.exists(tmp_path / "lanes_2d")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert_las_directory(os.path.join(slice_setup[0], "las"),
+                              str(tmp_path / "png"), img=192)
+    assert not os.path.exists(tmp_path / "png")
