@@ -9,15 +9,20 @@ or outside a checkout.  Phases, each of which fails the run:
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build K1 (``lanemapping_tpu_torch/csrc/bev_bin.cu``) and K1z
-   (``csrc/voxel_bin.cu``) with ``nvcc`` from the checkout's sources, one
+   (``csrc/voxel_bin.cu``), both on the band bucketing of
+   ``csrc/bin_bands.cuh``, with ``nvcc`` from the checkout's sources, one
    ``nvcc`` each, started together, printing the build times and
    ``-Xptxas -v``;
-3. K1 against its plain PyTorch version on the card at the slice's shapes
-   (8 seeded lane-structured clouds of 2^19 points, 1152^2 grid): counts
-   exactly equal, sums within rtol 1e-5 / atol 1e-5; CUDA-event times of
-   the kernel, the plain version and one ``index_put_(accumulate=True)``
-   call (the library yardstick, used nowhere in the port), beside the
-   bound (bytes moved over 3.35 TB/s);
+3. K1 (``bev_bin_mean``) against its plain PyTorch version on the card at
+   the slice's shapes (8 seeded lane-structured clouds of 2^19 points,
+   1152^2 grid): counts exactly equal, means within rtol 1e-5 / atol 1e-5;
+   CUDA-event times, in turns, of the kernel, the plain version and one
+   ``index_put_(accumulate=True)`` call (the library yardstick, used
+   nowhere in the port), beside the bound (bytes moved over 3.35 TB/s);
+   then the bucketing passes and the accumulate pass apart (the latter
+   with and without warp aggregation), each with the bytes it moves, and
+   one ``torch.zeros`` of the two 1152^2 outputs the earlier atomic kernel
+   had to zero-fill;
 4. the slice at full width: 16 seeded ``.las`` clouds of 2^19 points ->
    ``tools/stream_map --from-las`` on the flagship config
    (``configs/Proj_polyline_fpn_vit_vertex_2.py``), seeded random weights,
@@ -27,12 +32,16 @@ or outside a checkout.  Phases, each of which fails the run:
 5. the port on the card against the port on the CPU at
    ``configs/tiny_test.py`` in float32 with TF32 off: every head map within
    rel-max 2e-3, the same lane records (columns to 1e-3 px);
-6. K1z against its plain PyTorch version on the card at the LiDAR slice's
-   shapes (the first 8 clouds of phase 7's dataset, 2^19 points each,
-   576x576x10 grid, C = 4): counts exactly equal, sums within rtol 1e-5 /
-   atol 1e-5; CUDA-event times of the kernel, the plain version and one
-   ``index_put_(accumulate=True)`` call of [N, C+1] rows on precomputed
-   indices, beside the bound;
+6. K1z (``voxel_bin_mean``) against its plain PyTorch version on the card
+   at the LiDAR slice's shapes (the first 8 clouds of phase 7's dataset,
+   2^19 points each, 576x576x10 grid, C = 4): means within rtol 1e-5 /
+   atol 1e-5; CUDA-event times, in turns, of the kernel, the plain version
+   and one ``index_reduce_(..., 'mean', include_self=False)`` call on
+   precomputed voxel indices of the valid points (the library yardstick),
+   with one ``index_put_(accumulate=True)`` of [N, C+1] rows beside it,
+   against the bound; then the bucketing and accumulate passes apart with
+   their bytes, and one ``torch.zeros`` of the [B,Y,X,Z,C+1] sums and
+   counts the earlier atomic kernel had to zero-fill;
 7. the LiDAR slice at full width: 16 tiles of a seeded LaserLane dataset
    (``data/synthetic.generate_dataset``, 1152 px, 2^19 points per cloud)
    -> ``tools/stream_map --split infer_only`` on the LiDAR config
@@ -68,6 +77,7 @@ N_CLOUDS = 16
 GRID = (576, 576, 10)  # the LiDAR config's voxel grid, x, y, z
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at the 700 W limit
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's 1.98 GHz boost clock
 
 
 class SmokeFailure(RuntimeError):
@@ -84,11 +94,14 @@ def log(msg):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean milliseconds per call from CUDA events around ``iters`` calls."""
+    """Mean device milliseconds per call from CUDA events around ``iters``
+    calls, queued behind a ~50 ms device sleep, so that the host's time to
+    enqueue the calls leaves the card no idle gap between them."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -140,16 +153,26 @@ def phase_card():
 
 
 def reset_launches():
-    from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_sums
-    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_sums
-    bev_bin_sums.launches = voxel_bin_sums.launches = 0
+    from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_mean
+    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_mean
+    bev_bin_mean.launches = voxel_bin_mean.launches = 0
 
 
 def read_launches():
-    from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_sums
-    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_sums
-    return {"bev_bin_sums": bev_bin_sums.launches,
-            "voxel_bin_sums": voxel_bin_sums.launches}
+    from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_mean
+    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_mean
+    return {"bev_bin_mean": bev_bin_mean.launches,
+            "voxel_bin_mean": voxel_bin_mean.launches}
+
+
+def time_in_turns(fns, iters=20):
+    """Mean CUDA-event ms of each callable of {name: fn}, timed in the
+    order a, b, ..., ..., b, a, and every run."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {k: [] for k in fns}
+    for name in order:
+        runs[name].append(cuda_ms(fns[name], iters=iters))
+    return {k: sum(v) / len(v) for k, v in runs.items()}, runs
 
 
 def phase_build():
@@ -168,28 +191,30 @@ def phase_build():
 def phase_k1(root, pc_range):
     import numpy as np
     import torch
-    from lanemapping_tpu_torch.kernels.bev_bin import (bev_bin_sums,
-                                                       bev_bin_sums_ref,
-                                                       bin_geometry)
+    from lanemapping_tpu_torch.kernels import bev_bin
+    from lanemapping_tpu_torch.kernels.bin_bands import band_plan
     pts_np, msk_np = load_batch(root, [f"tile{i:03d}" for i in range(B)],
                                 N_POINTS)
     pts = torch.from_numpy(pts_np).cuda()
     msk = torch.from_numpy(msk_np).cuda()
-    s, c = bev_bin_sums(pts, msk, pc_range, IMG, flip_rows=True)
-    s_ref, c_ref = bev_bin_sums_ref(pts, msk, pc_range, IMG, flip_rows=True)
+    kw = dict(flip_rows=True)
+    m, c = bev_bin.bev_bin_mean(pts, msk, pc_range, IMG, **kw)
+    m_ref, c_ref = bev_bin.bev_bin_mean_ref(pts, msk, pc_range, IMG, **kw)
     torch.cuda.synchronize()
     cnt_mismatch = int((c != c_ref).sum())
-    max_abs_err = float((s - s_ref).abs().max())
-    sums_ok = bool(torch.allclose(s, s_ref, rtol=1e-5, atol=1e-5))
+    max_abs_err = float((m - m_ref).abs().max())
+    mean_ok = bool(torch.allclose(m, m_ref, rtol=1e-5, atol=1e-5))
     n_valid = int(c_ref.sum())
     log(f"K1 vs plain: {n_valid} binned points, cnt_mismatch {cnt_mismatch}, "
-        f"max_abs_err sums {max_abs_err:.3e}, allclose {sums_ok}")
+        f"max_abs_err means {max_abs_err:.3e}, allclose {mean_ok}; occupied "
+        f"cells {int((c_ref > 0).sum())}, most points in one cell "
+        f"{int(c_ref.max())}")
     check(cnt_mismatch == 0, f"K1 counts differ in {cnt_mismatch} cells")
-    check(sums_ok, f"K1 sums differ: max abs err {max_abs_err}")
+    check(mean_ok, f"K1 means differ: max abs err {max_abs_err}")
 
     # the library yardstick: one index_put_ of (value, 1) rows on indices
     # precomputed outside the timed call
-    lo, size = bin_geometry(pc_range, IMG)
+    lo, size = bev_bin.bin_geometry(pc_range, IMG)
     q = (pts[..., :2] - torch.as_tensor(lo, device=pts.device)) \
         / torch.as_tensor(size, device=pts.device)
     valid = msk & ((q >= 0) & (q < IMG)).all(-1)
@@ -207,27 +232,72 @@ def phase_k1(root, pc_range):
 
     lib = library().view(B, IMG, IMG, 2)
     check(torch.equal(lib[..., 1], c_ref), "index_put_ yardstick counts")
-    kernel = lambda: bev_bin_sums(pts, msk, pc_range, IMG, flip_rows=True)
-    plain = lambda: bev_bin_sums_ref(pts, msk, pc_range, IMG, flip_rows=True)
-    times = {"kernel": [], "plain": [], "library": []}
-    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
-        times[name].append(cuda_ms({"kernel": kernel, "plain": plain,
-                                    "library": library}[name]))
-    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    ms, runs = time_in_turns({
+        "kernel": lambda: bev_bin.bev_bin_mean(pts, msk, pc_range, IMG, **kw),
+        "plain": lambda: bev_bin.bev_bin_mean_ref(pts, msk, pc_range, IMG,
+                                                  **kw),
+        "library": library})
+    # each input read once, each output (mean, count) written once
     n_bytes = pts.numel() * 4 + msk.numel() + 2 * B * IMG * IMG * 4
-    n_ops = 6 * B * N_POINTS  # 2 sub, 2 div, 2 atomic adds per point
+    n_ops = 6 * B * N_POINTS + 2 * n_valid + B * IMG * IMG
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
     log(f"K1 kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
         f"index_put_ {ms['library']:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); runs {times}")
-    return {"name": "bev_bin_sums", "route": "cuda",
+        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); runs {runs}")
+
+    # the passes apart, on one plan and scratch, and the old zero fill
+    plan = band_plan(B, N_POINTS, IMG, IMG)
+    scratch = plan.scratch(pts.device)
+    pm, pc = torch.empty_like(m), torch.empty_like(c)
+
+    def passes(which, warp_agg=False):
+        return lambda: bev_bin.run_passes(pts, msk, pc_range, IMG, 3, True,
+                                          plan, scratch, pm, pc, which,
+                                          warp_agg)
+
+    passes(bev_bin.BUCKET_PASSES)()
+    for warp_agg in (False, True):
+        passes(bev_bin.MEAN, warp_agg)()
+        torch.cuda.synchronize()
+        check(torch.equal(pc, c_ref) and
+              bool(torch.allclose(pm, m_ref, rtol=1e-5, atol=1e-5)),
+              f"K1 accumulate pass (warp_agg={warp_agg}) differs")
+    # each timed set of passes needs only passes run before it on the same
+    # scratch: (A), (A)+(B), (A)+(B)+(C), then (D) on their result
+    pass_ms, pass_runs = time_in_turns({
+        "hist": passes(bev_bin.HIST),
+        "hist_scan": passes(bev_bin.HIST | bev_bin.SCAN),
+        "bucket": passes(bev_bin.BUCKET_PASSES),
+        "mean": passes(bev_bin.MEAN),
+        "mean_warp_agg": passes(bev_bin.MEAN, True),
+        "zeros_old_outputs": lambda: torch.zeros(2 * B * IMG * IMG,
+                                                 device=pts.device)})
+    pass_bytes = k_pass_bytes(pts, msk, n_valid, plan.rec,
+                              2 * B * IMG * IMG * 4)
+    log(f"K1 passes: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in pass_ms.items())
+        + f"; bytes {pass_bytes}; warp aggregation in the port: "
+        f"{bev_bin.WARP_AGG}; runs {pass_runs}")
+    return {"name": "bev_bin_mean", "route": "cuda",
             "source": "lanemapping_tpu_torch/csrc/bev_bin.cu",
             "replaces": "tests/pallas_reference_bev.py:111",
             "launches": None, "max_abs_err": max_abs_err,
             "ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": ms["library"], "kernel_ms": ms["kernel"],
-            "max_abs_err_sums": max_abs_err, "cnt_mismatch": cnt_mismatch}
+            "library_ms": ms["library"], "library": "index_put_",
+            "passes_ms": pass_ms, "passes_bytes": pass_bytes,
+            "cnt_mismatch": cnt_mismatch}
+
+
+def k_pass_bytes(pts, msk, n_valid, rec, out_bytes):
+    """Bytes each pass must move: (A) reads the points and the mask, (C)
+    reads them again and writes one record of ``rec`` floats per binned
+    point (padding not counted), (D) reads the records and writes the
+    outputs."""
+    inputs = pts.numel() * 4 + msk.numel()
+    payload = n_valid * 4 * rec
+    return {"hist": inputs, "scatter": inputs + payload,
+            "mean": payload + out_bytes}
 
 
 def phase_slice(root, out_dir):
@@ -242,7 +312,7 @@ def phase_slice(root, out_dir):
     rec = stream_map.main([FLAGSHIP, root, "--from-las", "--batch", str(B),
                            "--out", out_dir, "--seed", "0", "--bench-json"])
     counts = read_launches()
-    launches = counts["bev_bin_sums"]
+    launches = counts["bev_bin_mean"]
     log(f"slice: launches {counts}")
     check(launches > 0, "the main path never launched K1")
     check(rec["n_tiles"] == N_CLOUDS, f"{rec['n_tiles']} tiles streamed")
@@ -353,69 +423,109 @@ def load_lidar_batch(root, stems, n_points):
 def phase_k1z(root, stems, pc_range):
     import numpy as np
     import torch
-    from lanemapping_tpu_torch.kernels.voxel_bin import (voxel_bin_sums,
-                                                         voxel_bin_sums_ref,
-                                                         voxel_cells)
+    from lanemapping_tpu_torch.kernels import voxel_bin
+    from lanemapping_tpu_torch.kernels.bin_bands import band_plan
     pts_np, msk_np = load_lidar_batch(root, stems[:B], N_POINTS)
     pts = torch.from_numpy(pts_np).cuda()
     msk = torch.from_numpy(msk_np).cuda()
     C = pts.shape[-1]
-    s, c = voxel_bin_sums(pts, msk, pc_range, GRID)
-    s_ref, c_ref = voxel_bin_sums_ref(pts, msk, pc_range, GRID)
+    X, Y, Z = GRID
+    m = voxel_bin.voxel_bin_mean(pts, msk, pc_range, GRID)
+    m_ref = voxel_bin.voxel_bin_mean_ref(pts, msk, pc_range, GRID)
+    _, c_ref = voxel_bin.voxel_bin_sums_ref(pts, msk, pc_range, GRID)
     torch.cuda.synchronize()
-    cnt_mismatch = int((c != c_ref).sum())
-    max_abs_err = float((s - s_ref).abs().max())
-    sums_ok = bool(torch.allclose(s, s_ref, rtol=1e-5, atol=1e-5))
+    max_abs_err = float((m - m_ref).abs().max())
+    mean_ok = bool(torch.allclose(m, m_ref, rtol=1e-5, atol=1e-5))
+    # a voxel the kernel left empty, or filled where the plain version did
+    # not, shows as a mean of exactly 0 against a non-zero one
+    occ_mismatch = int(((m.view(B, Y, X, Z, C) != 0).any(-1)
+                        != (m_ref.view(B, Y, X, Z, C) != 0).any(-1)).sum())
     n_valid = int(c_ref.sum())
-    log(f"K1z vs plain: {n_valid} binned points, cnt_mismatch "
-        f"{cnt_mismatch}, max_abs_err sums {max_abs_err:.3e}, allclose "
-        f"{sums_ok}; occupied voxels {int((c_ref > 0).sum())}, most points "
-        f"in one voxel {int(c_ref.max())}")
-    check(cnt_mismatch == 0, f"K1z counts differ in {cnt_mismatch} voxels")
-    check(sums_ok, f"K1z sums differ: max abs err {max_abs_err}")
+    log(f"K1z vs plain: {n_valid} binned points, max_abs_err means "
+        f"{max_abs_err:.3e}, allclose {mean_ok}, occupancy mismatch "
+        f"{occ_mismatch}; occupied voxels {int((c_ref > 0).sum())}, most "
+        f"points in one voxel {int(c_ref.max())}")
+    check(mean_ok, f"K1z means differ: max abs err {max_abs_err}")
+    check(occ_mismatch == 0, f"K1z occupancy differs in {occ_mismatch}")
     check(n_valid > 0, "K1z binned no point")
 
-    # the library yardstick: one index_put_ of (features, 1) rows on
-    # voxel indices precomputed outside the timed call
-    X, Y, Z = GRID
-    ijk, valid = voxel_cells(pts, pc_range, GRID)
+    # the library yardsticks on voxel indices precomputed outside the timed
+    # call: one index_reduce_ to the mean of the valid points' rows (the
+    # same function), and one index_put_ of (features, 1) rows
+    ijk, valid = voxel_bin.voxel_cells(pts, pc_range, GRID)
     valid = valid & msk
     tile = torch.arange(B, device=pts.device)[:, None]
     lin = (((tile * Y + ijk[..., 1]) * X + ijk[..., 0]) * Z + ijk[..., 2])
+    lin_v, feats_v = lin[valid], pts[valid]
     lin = torch.where(valid, lin, 0).reshape(-1)
     rows = torch.cat([torch.where(valid[..., None], pts, 0.0),
                       valid[..., None].float()], -1).reshape(-1, C + 1)
 
     def library():
+        return torch.zeros(B * Y * X * Z, C, device=pts.device).index_reduce_(
+            0, lin_v, feats_v, "mean", include_self=False)
+
+    def index_put():
         return torch.zeros(B * Y * X * Z, C + 1,
                            device=pts.device).index_put_(
             (lin,), rows, accumulate=True)
 
-    lib = library().view(B, Y, X, Z, C + 1)
-    check(torch.equal(lib[..., C], c_ref), "index_put_ yardstick counts")
-    kernel = lambda: voxel_bin_sums(pts, msk, pc_range, GRID)
-    plain = lambda: voxel_bin_sums_ref(pts, msk, pc_range, GRID)
-    times = {"kernel": [], "plain": [], "library": []}
-    for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
-        times[name].append(cuda_ms({"kernel": kernel, "plain": plain,
-                                    "library": library}[name], iters=10))
-    ms = {k: float(np.mean(v)) for k, v in times.items()}
-    # each input read once, each output written once (the zero fill)
-    n_bytes = pts.numel() * 4 + msk.numel() + (s.numel() + c.numel()) * 4
-    # 3 sub + 3 div per point, C + 1 atomic adds per binned point
-    n_ops = 6 * B * N_POINTS + (C + 1) * n_valid
+    check(bool(torch.allclose(library().view(B, Y, X, Z * C), m_ref,
+                              rtol=1e-5, atol=1e-5)),
+          "index_reduce_ yardstick means")
+    check(torch.equal(index_put().view(B, Y, X, Z, C + 1)[..., C], c_ref),
+          "index_put_ yardstick counts")
+    ms, runs = time_in_turns({
+        "kernel": lambda: voxel_bin.voxel_bin_mean(pts, msk, pc_range, GRID),
+        "plain": lambda: voxel_bin.voxel_bin_mean_ref(pts, msk, pc_range,
+                                                      GRID),
+        "library": library, "index_put": index_put}, iters=10)
+    # each input read once, the mean written once
+    n_bytes = pts.numel() * 4 + msk.numel() + m.numel() * 4
+    # 3 sub + 3 div per point, C + 1 adds per binned point, one division
+    # per output
+    n_ops = 6 * B * N_POINTS + (C + 1) * n_valid + m.numel()
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
     log(f"K1z kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
-        f"index_put_ {ms['library']:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); runs {times}")
-    return {"name": "voxel_bin_sums", "route": "cuda",
+        f"index_reduce_ {ms['library']:.4f} ms, index_put_ "
+        f"{ms['index_put']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); runs {runs}")
+
+    # the passes apart, on one plan and scratch, and the old zero fill
+    plan = band_plan(B, N_POINTS, Y, X, Z, C)
+    scratch = plan.scratch(pts.device)
+    pm = torch.empty_like(m)
+
+    def passes(which):
+        return lambda: voxel_bin.run_passes(pts, msk, pc_range, GRID, plan,
+                                            scratch, pm, which)
+
+    passes(voxel_bin.BUCKET_PASSES)()
+    passes(voxel_bin.MEAN)()
+    torch.cuda.synchronize()
+    check(bool(torch.allclose(pm, m_ref, rtol=1e-5, atol=1e-5)),
+          "K1z accumulate pass differs")
+    pass_ms, pass_runs = time_in_turns({
+        "hist": passes(voxel_bin.HIST),
+        "hist_scan": passes(voxel_bin.HIST | voxel_bin.SCAN),
+        "bucket": passes(voxel_bin.BUCKET_PASSES),
+        "mean": passes(voxel_bin.MEAN),
+        "zeros_old_outputs": lambda: torch.zeros(B * Y * X * Z * (C + 1),
+                                                 device=pts.device)},
+        iters=10)
+    pass_bytes = k_pass_bytes(pts, msk, n_valid, plan.rec, m.numel() * 4)
+    log(f"K1z passes: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in pass_ms.items())
+        + f"; bytes {pass_bytes}; plan {plan}; runs {pass_runs}")
+    return {"name": "voxel_bin_mean", "route": "cuda",
             "source": "lanemapping_tpu_torch/csrc/voxel_bin.cu",
             "replaces": "tests/pallas_reference_bev.py:171",
             "launches": None, "max_abs_err": max_abs_err,
             "ms": ms["kernel"], "plain_ms": ms["plain"],
             "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": ms["library"], "kernel_ms": ms["kernel"],
-            "max_abs_err_sums": max_abs_err, "cnt_mismatch": cnt_mismatch}
+            "library_ms": ms["library"], "library": "index_reduce_",
+            "index_put_ms": ms["index_put"], "passes_ms": pass_ms,
+            "passes_bytes": pass_bytes}
 
 
 def head_shapes(S, P):
@@ -453,7 +563,7 @@ def phase_lidar_slice(root, stems, out_dir):
                            str(B), "--out", out_dir, "--seed", "0",
                            "--bench-json"])
     counts = read_launches()
-    launches = counts["voxel_bin_sums"]
+    launches = counts["voxel_bin_mean"]
     log(f"lidar slice: launches {counts}")
     check(launches > 0, "the LiDAR path never launched K1z")
     check(rec["n_tiles"] == len(stems), f"{rec['n_tiles']} tiles streamed")

@@ -1,82 +1,210 @@
-// K1: point -> BEV grid binning, per-cell (sum, count), for Hopper (sm_90a).
+// K1: point -> BEV grid binning, per-cell (mean, count) of one value
+// column, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `tests/pallas_reference_bev.py::bev_bin_sums`
-// (body `_bin_kernel`), which recast binning as one-hot MXU contractions
-// over 8-row bands because the TPU has no scatter atomics, and its
-// production twin, the XLA scatter-add of
-// `lanemapping_tpu/ops/voxelize.py::rasterize_bev_intensity`.  On Hopper the
-// work has its natural shape: one thread per (tile, point) computes the
-// point's cell and does two float atomicAdds, (value, 1), into the tile's
-// [H, W] sums and counts.  The mean sum / max(count, 1) is taken by the
-// caller (`ops/voxelize.py::rasterize_bev_intensity`).
+// (body `_bin_kernel`) and its wrapper `rasterize_bev_intensity_pallas`,
+// which recast binning as one-hot MXU contractions over 8-row bands held in
+// VMEM because the TPU has no scatter atomics, and their production twin,
+// the XLA scatter-add of `lanemapping_tpu/ops/voxelize.py::
+// rasterize_bev_intensity`.
 //
-// Fused in the kernel: the range test against pc_range, the point mask,
-// the cell index floor((p - lo) / size), the `flip_rows` row and the
-// intensity column.  `lo` and `size = (hi - lo) / img` arrive as float32
-// computed on the host exactly as the JAX package computes them, and this
-// file is compiled WITHOUT --use_fast_math, so the division is IEEE and a
-// point on a cell border lands in the same cell as in JAX.  The range test
-// is made on the float quotient (0 <= q < img), which for finite q equals
-// JAX's test on floor(q) and rejects NaN.
+// Design (passes (A)-(C) in `bin_bands.cuh`): the points are bucketed by
+// band, a band being a few rows of one tile (`kernels/bin_bands.py::
+// band_plan`; 4 rows of 1152 cells, 36.9 KB of shared memory, on the
+// flagship grid).  A point's record is its value and its cell's index
+// within the band, 8 bytes.  Pass (D), here: one CTA per band zeroes its shared sums
+// and counts, accumulates its segment with shared-memory atomics and writes
+// the band's mean sum / max(count, 1) and count, one contiguous stretch of
+// each [B, img, img] output, in 16-byte stores, empty cells included.  Every
+// output byte is written once: no zero fill, no read-modify-write of device
+// memory, no separate mean pass.  About 15% of a survey's returns are road
+// paint on a few thousand cells; their atomics now meet in shared memory.
 //
-// What bounds it: bytes.  Each point is read once (16 B for [x, y, z, i])
-// plus its mask byte, and each output cell is written once (the wrapper's
-// zero fill) and then hit by atomics that resolve in L2.  The other limit
-// is same-address contention: about 15% of a survey's returns are road
-// paint packed onto a few thousand cells, and atomics to one address
-// serialise.  This first version does nothing about that; shared-memory
-// privatisation, warp aggregation or a sort are later work.
+// Fused in (A) and (C): the range test against pc_range, the point mask,
+// the cell index floor((p - lo) / size), the `flip_rows` row (applied before
+// the band is formed) and the value column.  `lo` and `size = (hi - lo) /
+// img` arrive as float32 computed on the host exactly as the JAX package
+// computes them, and this file is compiled WITHOUT --use_fast_math, so the
+// division is IEEE and a point on a cell border lands in the same cell as in
+// JAX.  The range test is made on the float quotient (0 <= q < img), which
+// for finite q equals JAX's test on floor(q) and rejects NaN.
 //
-// Float atomics add in a different order on every run: counts are exact,
-// sums are not bit-reproducible.
+// What bounds it: bytes.  The function must read the points and the mask
+// once and write the two [B, img, img] float32 images once.  The bucketing
+// adds a second read of the points and a write and a read of the 8-byte
+// records, padded to whole sectors per CTA and band.
+//
+// Shared-memory atomics add in a different order on every run: counts are
+// exact, means are not bit-reproducible.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bin_bands.cuh"
 
 namespace {
 
-__global__ void bev_bin_kernel(const float* __restrict__ points,
-                               const uint8_t* __restrict__ mask,
-                               long long n_total, int n_points, int n_cols,
-                               float lo_x, float lo_y, float size_x,
-                               float size_y, int img, int intensity_col,
-                               int flip_rows, float* __restrict__ sums,
-                               float* __restrict__ cnts) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_total; i += stride) {
-    if (!mask[i]) continue;
+struct BevBinner {
+  const float* __restrict__ points;
+  const uint8_t* __restrict__ mask;
+  int n_cols;
+  float lo_x, lo_y, size_x, size_y;
+  int img, value_col, flip_rows;
+  static constexpr int n_vals = 1;
+
+  __device__ __forceinline__ bool cell(long long i, int& row, int& col,
+                                       int& sub) const {
     const float* p = points + i * n_cols;
-    const float qx = (p[0] - lo_x) / size_x;
-    const float qy = (p[1] - lo_y) / size_y;
+    const float x = p[0], y = p[1];  // loaded beside the mask, not after it
+    if (!mask[i]) return false;
+    const float qx = (x - lo_x) / size_x;
+    const float qy = (y - lo_y) / size_y;
     const float fimg = (float)img;
-    if (!(qx >= 0.0f && qx < fimg && qy >= 0.0f && qy < fimg)) continue;
-    const int col = (int)floorf(qx);
+    if (!(qx >= 0.0f && qx < fimg && qy >= 0.0f && qy < fimg)) return false;
+    col = (int)floorf(qx);
     const int iy = (int)floorf(qy);
-    const int row = flip_rows ? (img - 1 - iy) : iy;
-    const long long tile = i / n_points;
-    const long long cell = tile * (long long)img * img +
-                           (long long)row * img + col;
-    atomicAdd(sums + cell, p[intensity_col]);
-    atomicAdd(cnts + cell, 1.0f);
+    row = flip_rows ? (img - 1 - iy) : iy;
+    sub = 0;
+    return true;
+  }
+
+  static constexpr int rec = 2;  // [value, cell index]: 4 records a sector
+
+  __device__ __forceinline__ void write_record(long long i, float* dst,
+                                               int local) const {
+    *reinterpret_cast<float2*>(dst) =
+        make_float2(points[i * n_cols + value_col], __int_as_float(local));
+  }
+};
+
+// Sum of x over the lanes of `peers` (the lanes holding the same cell),
+// valid in the lowest lane of each peer group.  Every lane of the warp
+// takes part.
+__device__ __forceinline__ float reduce_peers(unsigned peers, float x) {
+  const int lane = threadIdx.x & 31;
+  int rel = __popc(peers & ((1u << lane) - 1));  // rank among the peers
+  peers &= ~((2u << lane) - 1);                  // the peers above this lane
+  while (__any_sync(0xffffffffu, peers)) {
+    const int next = __ffs(peers);
+    const float t = __shfl_sync(0xffffffffu, x, next - 1);
+    if (next) x += t;
+    peers &= ~__ballot_sync(0xffffffffu, rel & 1);
+    rel >>= 1;
+  }
+  return x;
+}
+
+__device__ __forceinline__ float mean_of(float sum, float n) {
+  return n > 1.0f ? sum / n : sum;
+}
+
+// (D) one CTA per band: shared sums [cells], padded to 16 bytes, then
+// counts [cells].  With
+// WARP_AGG, the lanes of a warp that hold the same cell add their values
+// with shuffles first, and one of them does the two atomics.
+template <bool WARP_AGG>
+__global__ void bev_mean_kernel(bins::BandGeom g,
+                                const int* __restrict__ band_off,
+                                const float2* __restrict__ slot_rec,
+                                float* __restrict__ mean,
+                                float* __restrict__ cnt) {
+  extern __shared__ float4 s_mem4[];
+  float* s_sum = reinterpret_cast<float*>(s_mem4);
+  const int band = blockIdx.x;
+  const int tile = band / g.bands_per_tile;
+  int r0, rows, x0, cols;
+  g.rect(band % g.bands_per_tile, r0, rows, x0, cols);
+  const int cells = rows * cols;
+  const int max_cells = g.rows_per_band * g.x_chunk;
+  float* s_cnt = s_sum + ((max_cells + 3) & ~3);  // 16-byte aligned
+  bins::zero_shared(s_sum, ((max_cells + 3) & ~3) + max_cells);
+  __syncthreads();
+
+  const int seg_begin = band_off[band], seg_end = band_off[band + 1];
+  if (WARP_AGG) {
+    const int lane = threadIdx.x & 31;
+    const int n_warps = blockDim.x >> 5;
+    for (int s0 = seg_begin + (threadIdx.x & ~31); s0 < seg_end;
+         s0 += n_warps * 32) {  // the same trip count on every lane
+      const int s = s0 + lane;
+      const float2 r = s < seg_end ? slot_rec[s]
+                                   : make_float2(0.f, __int_as_float(-1));
+      const int l = __float_as_int(r.y);  // -1 for padding and past the end
+      const unsigned peers = __match_any_sync(0xffffffffu, l);
+      const float sum = reduce_peers(peers, r.x);
+      if (l >= 0 && lane == __ffs(peers) - 1) {
+        atomicAdd(s_sum + l, sum);
+        atomicAdd(s_cnt + l, (float)__popc(peers));
+      }
+    }
+  } else {
+    for (int s = seg_begin + threadIdx.x; s < seg_end; s += blockDim.x) {
+      const float2 r = slot_rec[s];
+      const int l = __float_as_int(r.y);
+      if (l < 0) continue;  // padding
+      atomicAdd(s_sum + l, r.x);
+      atomicAdd(s_cnt + l, 1.0f);
+    }
+  }
+  __syncthreads();
+
+  // the band's cells: one stretch of each [B, img, img] output;
+  // sum / max(count, 1) is the sum itself where the count is 0 or 1
+  const long long out_off = ((long long)tile * g.height + r0) * g.width + x0;
+  int vec_end = 0;
+  if ((out_off & 3) == 0) {
+    float4* mean4 = reinterpret_cast<float4*>(mean + out_off);
+    float4* cnt4 = reinterpret_cast<float4*>(cnt + out_off);
+    const float4* c4 = reinterpret_cast<const float4*>(s_cnt);
+    vec_end = cells & ~3;
+    for (int q = threadIdx.x; q < (cells >> 2); q += blockDim.x) {
+      const float4 s = s_mem4[q];
+      const float4 n = c4[q];
+      mean4[q] = make_float4(mean_of(s.x, n.x), mean_of(s.y, n.y),
+                             mean_of(s.z, n.z), mean_of(s.w, n.w));
+      cnt4[q] = n;
+    }
+  }
+  for (int e = vec_end + threadIdx.x; e < cells; e += blockDim.x) {
+    mean[out_off + e] = mean_of(s_sum[e], s_cnt[e]);
+    cnt[out_off + e] = s_cnt[e];
   }
 }
 
+constexpr int MEAN_BLOCK = 256;
+
 }  // namespace
 
-extern "C" int lm_bev_bin_sums(const float* points, const uint8_t* mask,
-                               int n_tiles, int n_points, int n_cols,
-                               float lo_x, float lo_y, float size_x,
-                               float size_y, int img, int intensity_col,
-                               int flip_rows, float* sums, float* cnts,
-                               void* stream) {
-  const long long n_total = (long long)n_tiles * n_points;
-  if (n_total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  long long blocks = (n_total + threads - 1) / threads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond this
-  bev_bin_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      points, mask, n_total, n_points, n_cols, lo_x, lo_y, size_x, size_y,
-      img, intensity_col, flip_rows, sums, cnts);
-  return (int)cudaGetLastError();
+// passes: bits of bins::Pass, (A) HIST, (B) SCAN, (C) SCATTER, (D) MEAN.
+// Plan (`kernels/bin_bands.py::band_plan`): rows_per_band, x_chunk,
+// n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record (2),
+// align records per sector run (4).  warp_agg selects the warp-aggregated
+// form of (D).
+extern "C" int lm_bev_bin_mean(
+    const float* points, const uint8_t* mask, int n_tiles, int n_points,
+    int n_cols, float lo_x, float lo_y, float size_x, float size_y, int img,
+    int value_col, int flip_rows, int rows_per_band, int x_chunk,
+    int n_xchunks, int bands_per_tile, int smem_bytes, int rec, int align,
+    int* band_count, int* band_off, int* band_cursor, float* slot_rec,
+    float* mean, float* cnt, int passes, int warp_agg, void* stream_ptr) {
+  if (rec != BevBinner::rec) return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const bins::BandGeom g{img, img, 1, rows_per_band, x_chunk, n_xchunks,
+                         bands_per_tile};
+  const BevBinner bn{points, mask, n_cols, lo_x, lo_y, size_x, size_y,
+                     img, value_col, flip_rows};
+  cudaError_t err = cudaSuccess;
+  if (passes & (bins::HIST | bins::SCAN | bins::SCATTER)) {
+    err = bins::bucket_points(bn, g, n_tiles, n_points, align, band_count,
+                              band_off, band_cursor, slot_rec, passes,
+                              stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned n_bands = (unsigned)n_tiles * bands_per_tile;
+  if ((passes & bins::MEAN) && n_bands > 0) {
+    auto kernel = warp_agg ? bev_mean_kernel<true> : bev_mean_kernel<false>;
+    err = bins::allow_smem(kernel, (size_t)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<n_bands, MEAN_BLOCK, smem_bytes, stream>>>(
+        g, band_off, reinterpret_cast<const float2*>(slot_rec), mean, cnt);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }

@@ -1,21 +1,27 @@
-// K1z: point -> 3-D voxel binning in the z-fold layout, per-voxel (sums of
-// every point feature, count), for Hopper (sm_90a).
+// K1z: point -> 3-D voxel binning in the z-fold layout, per-voxel mean of
+// every point feature, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `tests/pallas_reference_bev.py::bev_bin_sums`
 // (body `_bin_kernel`) in its z-fold use, the wrapper
-// `voxelize_bev_zfold_pallas`: there the TPU folded z into the row axis and
-// ran one one-hot MXU contraction pass per feature (a vmap over C), then
-// transposed [C, Z, Y, X] -> [Y, X, Z*C].  It also replaces the production
-// twin, the XLA scatter-add of
-// `lanemapping_tpu/ops/voxelize.py::voxelize_mean`.  On Hopper the work has
-// its natural shape: one thread per (tile, point) computes the point's
-// voxel (ix, iy, iz) and does C + 1 float atomicAdds, (features, 1), straight
-// into sums [B, Y, X, Z, C] and counts [B, Y, X, Z].  That IS the z-fold
-// layout [B, Y, X, Z*C], so no transpose pass follows.  The mean
-// sum / max(count, 1) is taken by the caller
-// (`ops/voxelize.py::voxelize_bev_zfold`).
+// `voxelize_bev_zfold_pallas`, which returns the mean: there the TPU folded
+// z into the row axis, ran one one-hot MXU contraction pass per feature over
+// bands of rows held in VMEM, and transposed [C, Z, Y, X] -> [Y, X, Z*C].
+// It also replaces the production twin, the XLA scatter-add of
+// `lanemapping_tpu/ops/voxelize.py::voxelize_mean`.
 //
-// Fused in the kernel: the point mask, the range test against pc_range and
+// Design (passes (A)-(C) in `bin_bands.cuh`): the points are bucketed by
+// band, a band being one y row of one tile, cut into x-chunks
+// (`kernels/bin_bands.py::band_plan`; 192 x at 576 x 576 x 10 with C = 4,
+// 38.4 KB of shared memory).  A point's record is its C features and its
+// voxel's index within the band, in 32 bytes at C = 4.  Pass (D), here: one CTA per band zeroes
+// its shared sums [cells, C] and counts [cells], accumulates its segment
+// with shared-memory atomics and writes sum / max(count, 1) for the band's
+// X-chunk * Z * C outputs, which are one contiguous stretch of the z-fold
+// layout [B, Y, X, Z*C], in 16-byte stores, zeros of empty voxels included.
+// Every output byte is written once: there is no zero fill, no read-modify-
+// write of device memory and no separate mean pass.
+//
+// Fused in (A) and (C): the point mask, the range test against pc_range and
 // the voxel index floor((p - lo) / size) in x, y and z.  `lo` and
 // `size = (hi - lo) / [X, Y, Z]` arrive as float32 computed on the host
 // exactly as the JAX package computes them (`point_voxel_ids`), and this
@@ -24,69 +30,172 @@
 // is made on the float quotient (0 <= q < dim), which for finite q equals
 // JAX's test on floor(q) and rejects NaN.
 //
-// What bounds it: bytes.  Each point is read once (4 * C bytes) plus its
-// mask byte, and each output voxel is written once (the wrapper's zero fill:
-// 531 MB at B=8 on the 576 x 576 x 10 grid with C=4, ten times the points)
-// and then hit by atomics; the outputs do not fit in L2, so an atomic on a
-// voxel that no other point touched is a read-modify-write of device memory.
-// Paint returns pile onto a few thousand voxels of one z slab, where the
-// same-address atomics serialise.  This first version does nothing about
-// either; a sparse output (sort or hash), shared-memory privatisation, or a
-// fused mean are later work.
+// What bounds it: bytes.  The function must read the points (4 * C bytes
+// each) and the mask once and write the mean once (425 MB at B = 8 on the
+// 576 x 576 x 10 grid with C = 4).  The bucketing adds a second read of the
+// points and a write and a read of one 32-byte record per point (C = 4).
 //
-// Float atomics add in a different order on every run: counts are exact,
-// sums are not bit-reproducible.
+// Shared-memory atomics add in a different order on every run: counts are
+// exact, means are not bit-reproducible.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bin_bands.cuh"
 
 namespace {
 
-__global__ void voxel_bin_kernel(const float* __restrict__ points,
-                                 const uint8_t* __restrict__ mask,
-                                 long long n_total, int n_points, int n_cols,
-                                 float lo_x, float lo_y, float lo_z,
-                                 float size_x, float size_y, float size_z,
-                                 int gx, int gy, int gz,
-                                 float* __restrict__ sums,
-                                 float* __restrict__ cnts) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_total; i += stride) {
-    if (!mask[i]) continue;
-    const float* p = points + i * n_cols;
-    const float qx = (p[0] - lo_x) / size_x;
-    const float qy = (p[1] - lo_y) / size_y;
-    const float qz = (p[2] - lo_z) / size_z;
+struct VoxelBinner {
+  const float* __restrict__ points;
+  const uint8_t* __restrict__ mask;
+  int n_vals;  // C: every column of a point is averaged
+  int rec;     // floats per record: a power of two >= C + 1
+  float lo_x, lo_y, lo_z, size_x, size_y, size_z;
+  int gx, gy, gz;
+
+  // row = y voxel, col = x voxel, sub = z voxel
+  __device__ __forceinline__ bool cell(long long i, int& row, int& col,
+                                       int& sub) const {
+    const float* p = points + i * n_vals;
+    float x, y, z;  // loaded beside the mask, not after it
+    if (n_vals == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p);
+      x = f.x, y = f.y, z = f.z;
+    } else {
+      x = p[0], y = p[1], z = p[2];
+    }
+    if (!mask[i]) return false;
+    const float qx = (x - lo_x) / size_x;
+    const float qy = (y - lo_y) / size_y;
+    const float qz = (z - lo_z) / size_z;
     if (!(qx >= 0.0f && qx < (float)gx && qy >= 0.0f && qy < (float)gy &&
           qz >= 0.0f && qz < (float)gz))
-      continue;
-    const long long ix = (long long)floorf(qx);
-    const long long iy = (long long)floorf(qy);
-    const long long iz = (long long)floorf(qz);
-    const long long tile = i / n_points;
-    const long long voxel = ((tile * gy + iy) * gx + ix) * gz + iz;
-    float* s = sums + voxel * n_cols;
-    for (int c = 0; c < n_cols; ++c) atomicAdd(s + c, p[c]);
-    atomicAdd(cnts + voxel, 1.0f);
+      return false;
+    col = (int)floorf(qx);
+    row = (int)floorf(qy);
+    sub = (int)floorf(qz);
+    return true;
+  }
+
+  // the record [C features, voxel index, zeros], whole
+  __device__ __forceinline__ void write_record(long long i, float* dst,
+                                               int local) const {
+    const float* p = points + i * n_vals;
+    if (n_vals == 4) {  // rec == 8: two 16-byte stores, one sector
+      reinterpret_cast<float4*>(dst)[0] =
+          *reinterpret_cast<const float4*>(p);
+      reinterpret_cast<float4*>(dst)[1] =
+          make_float4(__int_as_float(local), 0.f, 0.f, 0.f);
+      return;
+    }
+    for (int c = 0; c < rec; c += 2)
+      *reinterpret_cast<float2*>(dst + c) =
+          make_float2(bins::record_elem(p, n_vals, c, local),
+                      bins::record_elem(p, n_vals, c + 1, local));
+  }
+};
+
+// (D) one CTA per band: shared sums [cells * C], padded to 16 bytes, then
+// counts [cells].
+__global__ void voxel_mean_kernel(bins::BandGeom g, int n_vals, int rec,
+                                  const int* __restrict__ band_off,
+                                  const float* __restrict__ slot_rec,
+                                  float* __restrict__ out) {
+  extern __shared__ float4 s_mem4[];
+  float* s_sum = reinterpret_cast<float*>(s_mem4);
+  const int C = n_vals;
+  const int band = blockIdx.x;
+  const int tile = band / g.bands_per_tile;
+  int r0, rows, x0, cols;
+  g.rect(band % g.bands_per_tile, r0, rows, x0, cols);
+  const int cells = rows * cols * g.depth;
+  const int max_cells = g.rows_per_band * g.x_chunk * g.depth;
+  const int n_sum = (max_cells * C + 3) & ~3;  // s_cnt 16-byte aligned
+  float* s_cnt = s_sum + n_sum;
+  bins::zero_shared(s_sum, n_sum + max_cells);
+  __syncthreads();
+
+  const int seg_end = band_off[band + 1];
+  for (int s = band_off[band] + threadIdx.x; s < seg_end; s += blockDim.x) {
+    const float* r = slot_rec + (long long)s * rec;
+    const int l = __float_as_int(r[C]);
+    if (l < 0) continue;  // padding
+    float* dst = s_sum + l * C;
+    if (C == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(r);
+      atomicAdd(dst + 0, f.x);
+      atomicAdd(dst + 1, f.y);
+      atomicAdd(dst + 2, f.z);
+      atomicAdd(dst + 3, f.w);
+    } else {
+      for (int c = 0; c < C; ++c) atomicAdd(dst + c, r[c]);
+    }
+    atomicAdd(s_cnt + l, 1.0f);
+  }
+  __syncthreads();
+
+  // the band's outputs: one stretch of n_out floats of the z-fold layout;
+  // sum / max(count, 1) is the sum itself where the count is 0 or 1
+  const long long out_off =
+      (((long long)tile * g.height + r0) * g.width + x0) * g.depth * C;
+  const int n_out = cells * C;
+  int vec_end = 0;
+  if ((out_off & 3) == 0) {
+    float4* out4 = reinterpret_cast<float4*>(out + out_off);
+    vec_end = n_out & ~3;
+    for (int q = threadIdx.x; q < (n_out >> 2); q += blockDim.x) {
+      float4 m = s_mem4[q];
+      if (C == 4) {  // one voxel per float4
+        const float n = s_cnt[q];
+        if (n > 1.0f) m = make_float4(m.x / n, m.y / n, m.z / n, m.w / n);
+      } else {
+        const int e = q << 2;
+        float n;
+        if ((n = s_cnt[e / C]) > 1.0f) m.x /= n;
+        if ((n = s_cnt[(e + 1) / C]) > 1.0f) m.y /= n;
+        if ((n = s_cnt[(e + 2) / C]) > 1.0f) m.z /= n;
+        if ((n = s_cnt[(e + 3) / C]) > 1.0f) m.w /= n;
+      }
+      out4[q] = m;
+    }
+  }
+  for (int e = vec_end + threadIdx.x; e < n_out; e += blockDim.x) {
+    const float n = s_cnt[e / C];
+    out[out_off + e] = n > 1.0f ? s_sum[e] / n : s_sum[e];
   }
 }
 
+constexpr int MEAN_BLOCK = 256;
+
 }  // namespace
 
-extern "C" int lm_voxel_bin_sums(const float* points, const uint8_t* mask,
-                                 int n_tiles, int n_points, int n_cols,
-                                 float lo_x, float lo_y, float lo_z,
-                                 float size_x, float size_y, float size_z,
-                                 int gx, int gy, int gz, float* sums,
-                                 float* cnts, void* stream) {
-  const long long n_total = (long long)n_tiles * n_points;
-  if (n_total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  long long blocks = (n_total + threads - 1) / threads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;  // grid-stride beyond this
-  voxel_bin_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      points, mask, n_total, n_points, n_cols, lo_x, lo_y, lo_z, size_x,
-      size_y, size_z, gx, gy, gz, sums, cnts);
-  return (int)cudaGetLastError();
+// passes: bits of bins::Pass, (A) HIST, (B) SCAN, (C) SCATTER, (D) MEAN.
+// Plan (`kernels/bin_bands.py::band_plan`): rows_per_band, x_chunk,
+// n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record,
+// align records per sector run.
+extern "C" int lm_voxel_bin_mean(
+    const float* points, const uint8_t* mask, int n_tiles, int n_points,
+    int n_cols, float lo_x, float lo_y, float lo_z, float size_x,
+    float size_y, float size_z, int gx, int gy, int gz, int rows_per_band,
+    int x_chunk, int n_xchunks, int bands_per_tile, int smem_bytes, int rec,
+    int align, int* band_count, int* band_off, int* band_cursor,
+    float* slot_rec, float* out, int passes, void* stream_ptr) {
+  const cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const bins::BandGeom g{gy, gx, gz, rows_per_band, x_chunk, n_xchunks,
+                         bands_per_tile};
+  const VoxelBinner bn{points, mask, n_cols, rec, lo_x, lo_y, lo_z, size_x,
+                       size_y, size_z, gx, gy, gz};
+  cudaError_t err = cudaSuccess;
+  if (passes & (bins::HIST | bins::SCAN | bins::SCATTER)) {
+    err = bins::bucket_points(bn, g, n_tiles, n_points, align, band_count,
+                              band_off, band_cursor, slot_rec, passes,
+                              stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned n_bands = (unsigned)n_tiles * bands_per_tile;
+  if ((passes & bins::MEAN) && n_bands > 0) {
+    err = bins::allow_smem(voxel_mean_kernel, (size_t)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    voxel_mean_kernel<<<n_bands, MEAN_BLOCK, smem_bytes, stream>>>(
+        g, n_cols, rec, band_off, slot_rec, out);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }

@@ -1,11 +1,13 @@
-"""K1: per-cell (sum, count) BEV binning — the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""K1: per-cell (mean, count) BEV binning — the CUDA kernel's wrapper and
+its plain PyTorch versions.
 
-The kernel (`csrc/bev_bin.cu`) replaces the TPU kernel
-`tests/pallas_reference_bev.py::bev_bin_sums` (`_bin_kernel`) on the
-rasterize step of `ops/voxelize.py`.  ``bev_bin_sums`` takes the plain
+The kernel (`csrc/bev_bin.cu`, bucketing in `csrc/bin_bands.cuh`) replaces
+the TPU kernel `tests/pallas_reference_bev.py::bev_bin_sums`
+(`_bin_kernel`) and its wrapper `rasterize_bev_intensity_pallas` on the
+rasterize step of `ops/voxelize.py`.  ``bev_bin_mean`` takes the plain
 version only for tensors that lie on the CPU; a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  ``bev_bin_sums_ref`` stays as the plain counterpart of
+the TPU kernel's per-cell (sum, count).
 """
 
 from __future__ import annotations
@@ -16,16 +18,20 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .bin_bands import BandPlan, band_plan
 from .build import load_library
 
 _SIGNATURES = {
-    "lm_bev_bin_sums": (
+    "lm_bev_bin_mean": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+         ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_int] * 10
+        + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p],
         ctypes.c_int),
 }
+HIST, SCAN, SCATTER, MEAN = 1, 2, 4, 8  # bins::Pass
+BUCKET_PASSES, ALL_PASSES = HIST | SCAN | SCATTER, 15
+WARP_AGG = False  # warp-aggregated atomics in pass (D)
 
 
 def bin_geometry(pc_range: Sequence[float], img: int
@@ -72,18 +78,30 @@ def bev_bin_sums_ref(points: torch.Tensor, mask: torch.Tensor,
     return sums.view(B, img, img), cnts.view(B, img, img)
 
 
-def bev_bin_sums(points: torch.Tensor, mask: torch.Tensor,
+def bev_bin_mean_ref(points: torch.Tensor, mask: torch.Tensor,
+                     pc_range: Sequence[float], img: int,
+                     intensity_col: int = 3, flip_rows: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: [B,N,C] points, [B,N] bool mask -> (mean, cnt)
+    [B,img,img] float32, mean = sum / max(count, 1) of
+    ``bev_bin_sums_ref``."""
+    sums, cnts = bev_bin_sums_ref(points, mask, pc_range, img,
+                                  intensity_col, flip_rows)
+    return sums / torch.clamp(cnts, min=1.0), cnts
+
+
+def bev_bin_mean(points: torch.Tensor, mask: torch.Tensor,
                  pc_range: Sequence[float], img: int,
                  intensity_col: int = 3, flip_rows: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B,N,C] float32 points, [B,N] bool mask -> (sums, cnts) [B,img,img]
+    """[B,N,C] float32 points, [B,N] bool mask -> (mean, cnt) [B,img,img]
     float32 on the points' device.  CUDA tensors run the K1 kernel;
-    ``bev_bin_sums.launches`` counts its launches."""
+    ``bev_bin_mean.launches`` counts its launches."""
     if points.device.type == "cpu":
-        return bev_bin_sums_ref(points, mask, pc_range, img, intensity_col,
+        return bev_bin_mean_ref(points, mask, pc_range, img, intensity_col,
                                 flip_rows)
     if points.device.type != "cuda":
-        raise ValueError(f"bev_bin_sums: unsupported device {points.device}")
+        raise ValueError(f"bev_bin_mean: unsupported device {points.device}")
     if points.dim() != 3 or points.dtype != torch.float32:
         raise ValueError(f"points must be [B,N,C] float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
@@ -99,23 +117,40 @@ def bev_bin_sums(points: torch.Tensor, mask: torch.Tensor,
     if not (points.is_contiguous() and mask.is_contiguous()):
         raise ValueError("points and mask must be contiguous")
     if max(B, N, img) >= 2 ** 31:
-        raise ValueError("bev_bin_sums: sizes must fit in int32")
+        raise ValueError("bev_bin_mean: sizes must fit in int32")
+    plan = band_plan(B, N, img, img)
+    mean = torch.empty((B, img, img), dtype=torch.float32,
+                       device=points.device)
+    cnt = torch.empty_like(mean)
+    run_passes(points, mask, pc_range, img, intensity_col, flip_rows, plan,
+               plan.scratch(points.device), mean, cnt, ALL_PASSES)
+    bev_bin_mean.launches += 1
+    return mean, cnt
+
+
+bev_bin_mean.launches = 0
+
+
+def run_passes(points: torch.Tensor, mask: torch.Tensor,
+               pc_range: Sequence[float], img: int, intensity_col: int,
+               flip_rows: bool, plan: BandPlan, scratch: dict,
+               mean: torch.Tensor, cnt: torch.Tensor, passes: int,
+               warp_agg: bool = WARP_AGG) -> None:
+    """The launch of ``bev_bin_mean`` on checked inputs, with the passes
+    chosen (a bit set of ``HIST``, ``SCAN``, ``SCATTER`` and ``MEAN``, each
+    needing the ones before it run on the same scratch), so that the passes
+    can be timed apart.  Counts nothing."""
+    B, N, C = points.shape
     lo, size = bin_geometry(pc_range, img)
     lib = load_library("bev_bin", _SIGNATURES)
-    sums = torch.zeros((B, img, img), dtype=torch.float32,
-                       device=points.device)
-    cnts = torch.zeros_like(sums)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = lib.lm_bev_bin_sums(
+        rc = lib.lm_bev_bin_mean(
             points.data_ptr(), mask.data_ptr(), B, N, C,
             float(lo[0]), float(lo[1]), float(size[0]), float(size[1]),
-            img, intensity_col, int(flip_rows), sums.data_ptr(),
-            cnts.data_ptr(), stream)
+            img, intensity_col, int(flip_rows), *plan.kernel_args(),
+            *(scratch[k].data_ptr() for k in ("band_count", "band_off",
+                                              "band_cursor", "slot_rec")),
+            mean.data_ptr(), cnt.data_ptr(), passes, int(warp_agg), stream)
     if rc != 0:
         raise RuntimeError(f"bev_bin kernel launch failed: CUDA error {rc}")
-    bev_bin_sums.launches += 1
-    return sums, cnts
-
-
-bev_bin_sums.launches = 0

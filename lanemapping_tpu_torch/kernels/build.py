@@ -11,6 +11,7 @@ module is imported: the CPU tests import every module on a machine with no
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -22,7 +23,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", CSRC_DIR]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -44,9 +46,12 @@ def _paths(name: str):
 
 
 def _fresh(name: str) -> bool:
+    """The library is newer than its source and every shared header."""
     src, lib = _paths(name)
-    return os.path.exists(lib) and \
-        os.path.getmtime(lib) >= os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return False
+    deps = [src, *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
+    return os.path.getmtime(lib) >= max(os.path.getmtime(d) for d in deps)
 
 
 def build_all(names: Iterable[str], force: bool = False) -> Dict[str, Dict]:

@@ -1,11 +1,13 @@
-"""K1z: per-voxel (feature sums, count) in the z-fold layout — the CUDA
-kernel's wrapper and its plain PyTorch version.
+"""K1z: per-voxel feature means in the z-fold layout — the CUDA kernel's
+wrapper and its plain PyTorch versions.
 
-The kernel (`csrc/voxel_bin.cu`) replaces the TPU kernel
-`tests/pallas_reference_bev.py::bev_bin_sums` (`_bin_kernel`) in its z-fold
-use (`voxelize_bev_zfold_pallas`) on the voxelize step of
-`ops/voxelize.py`.  ``voxel_bin_sums`` takes the plain version only for
-tensors that lie on the CPU; a CUDA tensor launches the kernel or raises.
+The kernel (`csrc/voxel_bin.cu`, bucketing in `csrc/bin_bands.cuh`)
+replaces the TPU kernel `tests/pallas_reference_bev.py::bev_bin_sums`
+(`_bin_kernel`) in its z-fold use (`voxelize_bev_zfold_pallas`) on the
+voxelize step of `ops/voxelize.py`.  ``voxel_bin_mean`` takes the plain
+version only for tensors that lie on the CPU; a CUDA tensor launches the
+kernel or raises.  ``voxel_bin_sums_ref`` stays as the plain counterpart of
+the TPU kernel's per-voxel (sums, count).
 """
 
 from __future__ import annotations
@@ -16,15 +18,18 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .bin_bands import BandPlan, band_plan
 from .build import load_library
 
 _SIGNATURES = {
-    "lm_voxel_bin_sums": (
+    "lm_voxel_bin_mean": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+         ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_int] * 10
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int),
 }
+HIST, SCAN, SCATTER, MEAN = 1, 2, 4, 8  # bins::Pass
+BUCKET_PASSES, ALL_PASSES = HIST | SCAN | SCATTER, 15
 
 
 def voxel_geometry(pc_range: Sequence[float], grid: Sequence[int]
@@ -77,17 +82,28 @@ def voxel_bin_sums_ref(points: torch.Tensor, mask: torch.Tensor,
     return sums.view(B, Y, X, Z, C), cnts.view(B, Y, X, Z)
 
 
-def voxel_bin_sums(points: torch.Tensor, mask: torch.Tensor,
+def voxel_bin_mean_ref(points: torch.Tensor, mask: torch.Tensor,
+                       pc_range: Sequence[float], grid: Sequence[int]
+                       ) -> torch.Tensor:
+    """Plain version: [B,N,C] points, [B,N] bool mask -> per-voxel means
+    [B, Y, X, Z*C] float32, sum / max(count, 1) of ``voxel_bin_sums_ref``;
+    empty voxels are 0."""
+    sums, cnts = voxel_bin_sums_ref(points, mask, pc_range, grid)
+    B, Y, X, Z, C = sums.shape
+    return (sums / torch.clamp(cnts, min=1.0)[..., None]).view(B, Y, X, Z * C)
+
+
+def voxel_bin_mean(points: torch.Tensor, mask: torch.Tensor,
                    pc_range: Sequence[float], grid: Sequence[int]
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B,N,C] float32 points, [B,N] bool mask -> (sums [B,Y,X,Z,C], cnts
-    [B,Y,X,Z]) float32 on the points' device, for ``grid`` = (X, Y, Z).
-    CUDA tensors run the K1z kernel; ``voxel_bin_sums.launches`` counts its
+                   ) -> torch.Tensor:
+    """[B,N,C] float32 points, [B,N] bool mask -> per-voxel means
+    [B, Y, X, Z*C] float32 on the points' device, for ``grid`` = (X, Y, Z).
+    CUDA tensors run the K1z kernel; ``voxel_bin_mean.launches`` counts its
     launches."""
     if points.device.type == "cpu":
-        return voxel_bin_sums_ref(points, mask, pc_range, grid)
+        return voxel_bin_mean_ref(points, mask, pc_range, grid)
     if points.device.type != "cuda":
-        raise ValueError(f"voxel_bin_sums: unsupported device {points.device}")
+        raise ValueError(f"voxel_bin_mean: unsupported device {points.device}")
     if points.dim() != 3 or points.dtype != torch.float32:
         raise ValueError(f"points must be [B,N,C] float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
@@ -104,22 +120,37 @@ def voxel_bin_sums(points: torch.Tensor, mask: torch.Tensor,
     X, Y, Z = (int(g) for g in grid)
     if min(X, Y, Z) < 1 or max(B, N, X, Y, Z) >= 2 ** 31:
         raise ValueError(f"bad grid {tuple(grid)} or sizes beyond int32")
-    lo, size = voxel_geometry(pc_range, (X, Y, Z))
+    plan = band_plan(B, N, Y, X, Z, C)
+    out = torch.empty((B, Y, X, Z * C), dtype=torch.float32,
+                      device=points.device)
+    run_passes(points, mask, pc_range, (X, Y, Z), plan,
+               plan.scratch(points.device), out, ALL_PASSES)
+    voxel_bin_mean.launches += 1
+    return out
+
+
+voxel_bin_mean.launches = 0
+
+
+def run_passes(points: torch.Tensor, mask: torch.Tensor,
+               pc_range: Sequence[float], grid: Sequence[int],
+               plan: BandPlan, scratch: dict, out: torch.Tensor,
+               passes: int) -> None:
+    """The launch of ``voxel_bin_mean`` on checked inputs, with the passes
+    chosen (a bit set of ``HIST``, ``SCAN``, ``SCATTER`` and ``MEAN``, each
+    needing the ones before it run on the same scratch), so that the passes
+    can be timed apart.  Counts nothing."""
+    B, N, C = points.shape
+    lo, size = voxel_geometry(pc_range, grid)
     lib = load_library("voxel_bin", _SIGNATURES)
-    sums = torch.zeros((B, Y, X, Z, C), dtype=torch.float32,
-                       device=points.device)
-    cnts = torch.zeros((B, Y, X, Z), dtype=torch.float32,
-                       device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = lib.lm_voxel_bin_sums(
+        rc = lib.lm_voxel_bin_mean(
             points.data_ptr(), mask.data_ptr(), B, N, C,
-            *(float(v) for v in lo), *(float(v) for v in size), X, Y, Z,
-            sums.data_ptr(), cnts.data_ptr(), stream)
+            *(float(v) for v in lo), *(float(v) for v in size), *grid,
+            *plan.kernel_args(),
+            *(scratch[k].data_ptr() for k in ("band_count", "band_off",
+                                              "band_cursor", "slot_rec")),
+            out.data_ptr(), passes, stream)
     if rc != 0:
         raise RuntimeError(f"voxel_bin kernel launch failed: CUDA error {rc}")
-    voxel_bin_sums.launches += 1
-    return sums, cnts
-
-
-voxel_bin_sums.launches = 0

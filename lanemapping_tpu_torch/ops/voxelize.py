@@ -1,12 +1,12 @@
 """Point-cloud voxelization and BEV rasterization on the card.
 
 Port of `lanemapping_tpu/ops/voxelize.py`.  The LiDAR half:
-``voxelize_bev_zfold`` bins points into per-voxel (feature sums, count) in
-the z-fold layout with the K1z kernel (`kernels/voxel_bin.py`, CUDA source
-`csrc/voxel_bin.cu`) and takes the mean; ``first_k_in_voxel`` (the
-``ref_exact_voxel_cap`` mode) narrows the mask beforehand with a stable sort.
-The LAS half: ``rasterize_bev_intensity`` bins points into per-cell (sum,
-count) with the K1 kernel (`kernels/bev_bin.py`, CUDA source
+``voxelize_bev_zfold`` bins points into per-voxel feature means in the
+z-fold layout with the K1z kernel (`kernels/voxel_bin.py`, CUDA source
+`csrc/voxel_bin.cu`), which writes the mean itself; ``first_k_in_voxel``
+(the ``ref_exact_voxel_cap`` mode) narrows the mask beforehand with a stable
+sort.  The LAS half: ``rasterize_bev_intensity`` bins points into per-cell
+(mean, count) with the K1 kernel (`kernels/bev_bin.py`, CUDA source
 `csrc/bev_bin.cu`), and ``bev_image_from_points`` adds the hole fill and the
 intensity calibration.
 
@@ -21,8 +21,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.bev_bin import bev_bin_sums
-from ..kernels.voxel_bin import voxel_bin_sums, voxel_cells
+from ..kernels.bev_bin import bev_bin_mean
+from ..kernels.voxel_bin import voxel_bin_mean, voxel_cells
 
 
 def _batched(points: torch.Tensor, mask: torch.Tensor):
@@ -81,9 +81,7 @@ def voxelize_bev_zfold(points: torch.Tensor, mask: torch.Tensor,
     if max_points_per_voxel is not None:
         lin, in_range = point_voxel_ids(pts, pc_range, grid)
         msk = first_k_in_voxel(lin, msk & in_range, max_points_per_voxel)
-    sums, cnts = voxel_bin_sums(pts, msk.contiguous(), pc_range, grid)
-    B, Y, X, Z, C = sums.shape
-    mean = (sums / torch.clamp(cnts, min=1.0)[..., None]).view(B, Y, X, Z * C)
+    mean = voxel_bin_mean(pts, msk.contiguous(), pc_range, grid)
     return mean[0] if single else mean
 
 
@@ -111,11 +109,10 @@ def rasterize_bev_intensity(points: torch.Tensor, mask: torch.Tensor,
 
     Row = y bin, col = x bin; with ``flip_rows`` row 0 = y_max (the
     annotation/tile frame of the synthetic labels).  The mean is
-    ``sum / max(count, 1)``, taken here and not in the kernel."""
+    ``sum / max(count, 1)``, taken in the kernel."""
     pts, msk, single = _batched(points, mask)
-    sums, cnts = bev_bin_sums(pts.float().contiguous(), msk.contiguous(),
+    mean, cnts = bev_bin_mean(pts.float().contiguous(), msk.contiguous(),
                               pc_range, img, intensity_col, flip_rows)
-    mean = sums / torch.clamp(cnts, min=1.0)
     if single:
         return mean[0], cnts[0]
     return mean, cnts

@@ -1,7 +1,7 @@
 """The LiDAR half of the port's ``ops/voxelize.py`` (z-fold voxelizer on
-K1z, ``first_k_in_voxel``) and ``ops/interp.py::resize_bicubic`` against
-the JAX package, at the tiny LiDAR grid (96x96x4) and at a grid whose width
-is not a multiple of 128.
+K1z, ``first_k_in_voxel``), K1z's plain versions, and
+``ops/interp.py::resize_bicubic`` against the JAX package, at the tiny
+LiDAR grid (96x96x4) and at a grid whose width is not a multiple of 128.
 
 On the CPU the K1z wrapper runs its plain version (``index_put_``); the
 CUDA kernel itself is held to that plain version on the card
@@ -113,16 +113,16 @@ def test_voxelize_matches_jax(cap):
 
 def test_plain_zfold_counts_match_jax_exactly():
     from lanemapping_tpu.ops.voxelize import point_voxel_ids as ids_j
-    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_sums
+    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_sums_ref
 
     pts, mask = cloud(6, 8000, TINY_GRID, clustered=True)
     lin, in_range = ids_j(jnp.asarray(pts), PC_RANGE, TINY_GRID)
     ok = np.asarray(in_range) & mask
     want = np.bincount(np.asarray(lin)[ok], minlength=96 * 96 * 4)
     want = want.reshape(4, 96, 96).transpose(1, 2, 0)  # [Y,X,Z]
-    sums, cnts = voxel_bin_sums(torch.tensor(pts)[None],
-                                torch.tensor(mask)[None], PC_RANGE,
-                                TINY_GRID)
+    sums, cnts = voxel_bin_sums_ref(torch.tensor(pts)[None],
+                                    torch.tensor(mask)[None], PC_RANGE,
+                                    TINY_GRID)
     assert sums.shape == (1, 96, 96, 4, 4) and cnts.shape == (1, 96, 96, 4)
     np.testing.assert_array_equal(cnts[0].numpy(), want)
 
@@ -145,6 +145,31 @@ def test_plain_zfold_matches_pallas_oracle(grid, pc_range):
     got = voxelize_bev_zfold(torch.tensor(pts), torch.tensor(mask), pc_range,
                              grid)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_plain_zfold_mean_matches_jax_and_pallas_oracle():
+    """K1z's plain version, the per-voxel mean the kernel writes, against
+    the JAX voxelizer and the TPU kernel's z-fold wrapper in interpret
+    mode."""
+    from lanemapping_tpu.ops.voxelize import voxelize_bev_zfold as zfold_j
+    from pallas_reference_bev import voxelize_bev_zfold_pallas
+    from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_mean_ref
+
+    clouds = [cloud(s, 4000, TINY_GRID, clustered=True) for s in (8, 9)]
+    pts = np.stack([c[0] for c in clouds])
+    mask = np.stack([c[1] for c in clouds])
+    got = voxel_bin_mean_ref(torch.tensor(pts), torch.tensor(mask),
+                             PC_RANGE, TINY_GRID).numpy()
+    assert got.shape == (2, 96, 96, 16)
+    want = jax.vmap(lambda p, m: zfold_j(p, m, PC_RANGE, TINY_GRID))(
+        jnp.asarray(pts), jnp.asarray(mask))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    want_p = voxelize_bev_zfold_pallas(jnp.asarray(pts[0]),
+                                       jnp.asarray(mask[0]), PC_RANGE,
+                                       TINY_GRID, interpret=True,
+                                       capacity=1024)
+    np.testing.assert_allclose(got[0], np.asarray(want_p), rtol=1e-5,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("n_in,n_out", [(24, 48), (5, 13), (13, 5), (1, 4),

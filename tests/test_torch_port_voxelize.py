@@ -1,5 +1,5 @@
-"""K1 (BEV binning) and the port's rasterize path against the JAX package,
-plus the host modules the port keeps as copies.
+"""K1 (BEV binning), its plain versions and the port's rasterize path
+against the JAX package, plus the host modules the port keeps as copies.
 
 On the CPU the K1 wrapper runs its plain version (``index_put_``); the CUDA
 kernel itself is held to that plain version on the card
@@ -79,6 +79,36 @@ def test_plain_binning_matches_pallas_oracle():
                                     torch.tensor(mask)[None], PC_RANGE, img)
     np.testing.assert_array_equal(got_c[0].numpy(), want_c)
     np.testing.assert_allclose(got_s[0].numpy(), want_s, rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("flip_rows", [False, True])
+def test_plain_bev_mean_matches_jax_and_pallas_oracle(flip_rows):
+    """K1's plain version, the (mean, count) the kernel writes, against the
+    JAX rasterizer and the TPU kernel's wrapper in interpret mode (which
+    has no row flip: its rows are flipped here)."""
+    from lanemapping_tpu.ops.voxelize import rasterize_bev_intensity as rast_j
+    from pallas_reference_bev import rasterize_bev_intensity_pallas
+    from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_mean_ref
+
+    img = 128
+    clouds = [cloud(s, 5000, img) for s in (6, 7)]
+    pts = np.stack([c[0] for c in clouds])
+    mask = np.stack([c[1] for c in clouds])
+    got_m, got_c = bev_bin_mean_ref(torch.tensor(pts), torch.tensor(mask),
+                                    PC_RANGE, img, flip_rows=flip_rows)
+    for b in range(2):
+        want_m, want_c = rast_j(jnp.asarray(pts[b]), jnp.asarray(mask[b]),
+                                PC_RANGE, img, flip_rows=flip_rows)
+        np.testing.assert_array_equal(got_c[b].numpy(), np.asarray(want_c))
+        np.testing.assert_allclose(got_m[b].numpy(), np.asarray(want_m),
+                                   rtol=1e-5, atol=1e-6)
+    want_p = np.asarray(rasterize_bev_intensity_pallas(
+        jnp.asarray(pts[0]), jnp.asarray(mask[0]), PC_RANGE, img,
+        interpret=True))
+    if flip_rows:
+        want_p = want_p[::-1]
+    np.testing.assert_allclose(got_m[0].numpy(), want_p, rtol=1e-5,
                                atol=1e-6)
 
 
