@@ -16,11 +16,12 @@ or outside a checkout.  Phases, each of which fails the run:
 3. K1 (``bev_bin_mean``) against its plain PyTorch version on the card at
    the slice's shapes (8 seeded lane-structured clouds of 2^19 points,
    1152^2 grid): counts exactly equal, means within rtol 1e-5 / atol 1e-5;
-   CUDA-event times, in turns, of the kernel, the plain version and one
+   times, in turns, of the kernel, the plain version and one
    ``index_put_(accumulate=True)`` call (the library yardstick, used
-   nowhere in the port), beside the bound (bytes moved over 3.35 TB/s);
-   then the bucketing passes and the accumulate pass apart (the latter
-   with and without warp aggregation), each with the bytes it moves, and
+   nowhere in the port), beside the bound (bytes moved over 3.35 TB/s),
+   each both behind a device sleep and back to back (``cuda_ms``), with the
+   host's time per call; then each pass's device time from
+   ``torch.profiler`` on the same wrapper, with the bytes it moves, and
    one ``torch.zeros`` of the two 1152^2 outputs the earlier atomic kernel
    had to zero-fill;
 4. the slice at full width: 16 seeded ``.las`` clouds of 2^19 points ->
@@ -35,13 +36,13 @@ or outside a checkout.  Phases, each of which fails the run:
 6. K1z (``voxel_bin_mean``) against its plain PyTorch version on the card
    at the LiDAR slice's shapes (the first 8 clouds of phase 7's dataset,
    2^19 points each, 576x576x10 grid, C = 4): means within rtol 1e-5 /
-   atol 1e-5; CUDA-event times, in turns, of the kernel, the plain version
-   and one ``index_reduce_(..., 'mean', include_self=False)`` call on
+   atol 1e-5; times, as in phase 3, of the kernel, the plain version and
+   one ``index_reduce_(..., 'mean', include_self=False)`` call on
    precomputed voxel indices of the valid points (the library yardstick),
    with one ``index_put_(accumulate=True)`` of [N, C+1] rows beside it,
-   against the bound; then the bucketing and accumulate passes apart with
-   their bytes, and one ``torch.zeros`` of the [B,Y,X,Z,C+1] sums and
-   counts the earlier atomic kernel had to zero-fill;
+   against the bound; then each pass's device time with its bytes, and one
+   ``torch.zeros`` of the [B,Y,X,Z,C+1] sums and counts the earlier atomic
+   kernel had to zero-fill;
 7. the LiDAR slice at full width: 16 tiles of a seeded LaserLane dataset
    (``data/synthetic.generate_dataset``, 1152 px, 2^19 points per cloud)
    -> ``tools/stream_map --split infer_only`` on the LiDAR config
@@ -94,22 +95,37 @@ def log(msg):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device milliseconds per call from CUDA events around ``iters``
-    calls, queued behind a ~50 ms device sleep, so that the host's time to
-    enqueue the calls leaves the card no idle gap between them."""
+    """Per call of ``fn``, the mean over ``iters`` calls of:
+
+    - ``ms``: device milliseconds from CUDA events around calls queued
+      behind a ~50 ms device sleep, so that the host's time to enqueue them
+      leaves the card no gap: the device's own time;
+    - ``host_us``: host microseconds to enqueue one of those calls;
+    - ``ms_back_to_back``: CUDA events around calls made one after the other
+      on an idle card, with no sleep: the larger of the device's and the
+      host's time, as a caller that waits on each call sees it."""
     import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(iters):
         fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / iters
+    back_to_back = a.elapsed_time(b) / iters
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    b.record()
+    b.synchronize()
+    return {"ms": a.elapsed_time(b) / iters, "ms_back_to_back": back_to_back,
+            "host_us": host_us}
 
 
 def write_clouds(root, n, img, n_points, seed0):
@@ -166,13 +182,32 @@ def read_launches():
 
 
 def time_in_turns(fns, iters=20):
-    """Mean CUDA-event ms of each callable of {name: fn}, timed in the
-    order a, b, ..., ..., b, a, and every run."""
+    """``cuda_ms`` of each callable of {name: fn}, timed in the order
+    a, b, ..., ..., b, a: {name: the mean of its two runs}, and every run."""
     order = list(fns) + list(fns)[::-1]
     runs = {k: [] for k in fns}
     for name in order:
         runs[name].append(cuda_ms(fns[name], iters=iters))
-    return {k: sum(v) / len(v) for k, v in runs.items()}, runs
+    return {k: {m: sum(r[m] for r in v) / len(v) for m in v[0]}
+            for k, v in runs.items()}, runs
+
+
+def fmt_times(t):
+    return (f"{t['ms']:.4f} ms ({t['ms_back_to_back']:.4f} back to back, "
+            f"host {t['host_us']:.1f} us/call)")
+
+
+def profile_passes(fn, iters):
+    """Device us per call of each pass of a binning wrapper, from
+    ``torch.profiler``, and the host us per call under the profiler."""
+    from lanemapping_tpu_torch.tools.profile_binning import (pass_split,
+                                                             profile)
+    kernels, host_us = profile(fn, iters)
+    split = pass_split(kernels)
+    check(all(split.get(k, 0.0) > 0 for k in ("hist", "scan", "scatter",
+                                              "mean")),
+          f"the profiler saw no device time of some pass: {kernels}")
+    return split, host_us
 
 
 def phase_build():
@@ -191,8 +226,7 @@ def phase_build():
 def phase_k1(root, pc_range):
     import numpy as np
     import torch
-    from lanemapping_tpu_torch.kernels import bev_bin
-    from lanemapping_tpu_torch.kernels.bin_bands import band_plan
+    from lanemapping_tpu_torch.kernels import bev_bin, bin_bands as bands
     pts_np, msk_np = load_batch(root, [f"tile{i:03d}" for i in range(B)],
                                 N_POINTS)
     pts = torch.from_numpy(pts_np).cuda()
@@ -232,60 +266,44 @@ def phase_k1(root, pc_range):
 
     lib = library().view(B, IMG, IMG, 2)
     check(torch.equal(lib[..., 1], c_ref), "index_put_ yardstick counts")
-    ms, runs = time_in_turns({
-        "kernel": lambda: bev_bin.bev_bin_mean(pts, msk, pc_range, IMG, **kw),
+    def kernel():
+        return bev_bin.bev_bin_mean(pts, msk, pc_range, IMG, **kw)
+
+    t, runs = time_in_turns({
+        "kernel": kernel,
         "plain": lambda: bev_bin.bev_bin_mean_ref(pts, msk, pc_range, IMG,
                                                   **kw),
-        "library": library})
+        "library": library,
+        "zeros_old_outputs": lambda: torch.zeros(2 * B * IMG * IMG,
+                                                 device=pts.device)})
     # each input read once, each output (mean, count) written once
     n_bytes = pts.numel() * 4 + msk.numel() + 2 * B * IMG * IMG * 4
     n_ops = 6 * B * N_POINTS + 2 * n_valid + B * IMG * IMG
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
-    log(f"K1 kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
-        f"index_put_ {ms['library']:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); runs {runs}")
+    log(f"K1 kernel {fmt_times(t['kernel'])}, plain {fmt_times(t['plain'])}, "
+        f"index_put_ {fmt_times(t['library'])}, bound {bound_ms:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); old outputs' zero fill "
+        f"{fmt_times(t['zeros_old_outputs'])}; runs {runs}")
 
-    # the passes apart, on one plan and scratch, and the old zero fill
-    plan = band_plan(B, N_POINTS, IMG, IMG)
-    scratch = plan.scratch(pts.device)
-    pm, pc = torch.empty_like(m), torch.empty_like(c)
-
-    def passes(which, warp_agg=False):
-        return lambda: bev_bin.run_passes(pts, msk, pc_range, IMG, 3, True,
-                                          plan, scratch, pm, pc, which,
-                                          warp_agg)
-
-    passes(bev_bin.BUCKET_PASSES)()
-    for warp_agg in (False, True):
-        passes(bev_bin.MEAN, warp_agg)()
-        torch.cuda.synchronize()
-        check(torch.equal(pc, c_ref) and
-              bool(torch.allclose(pm, m_ref, rtol=1e-5, atol=1e-5)),
-              f"K1 accumulate pass (warp_agg={warp_agg}) differs")
-    # each timed set of passes needs only passes run before it on the same
-    # scratch: (A), (A)+(B), (A)+(B)+(C), then (D) on their result
-    pass_ms, pass_runs = time_in_turns({
-        "hist": passes(bev_bin.HIST),
-        "hist_scan": passes(bev_bin.HIST | bev_bin.SCAN),
-        "bucket": passes(bev_bin.BUCKET_PASSES),
-        "mean": passes(bev_bin.MEAN),
-        "mean_warp_agg": passes(bev_bin.MEAN, True),
-        "zeros_old_outputs": lambda: torch.zeros(2 * B * IMG * IMG,
-                                                 device=pts.device)})
+    plan = bands.band_plan(B, N_POINTS, IMG, IMG)
     pass_bytes = k_pass_bytes(pts, msk, n_valid, plan.rec,
                               2 * B * IMG * IMG * 4)
-    log(f"K1 passes: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in pass_ms.items())
-        + f"; bytes {pass_bytes}; warp aggregation in the port: "
-        f"{bev_bin.WARP_AGG}; runs {pass_runs}")
+    pass_us, prof_host_us = profile_passes(kernel, 20)
+    log(f"K1 passes (profiler, device us/call): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in pass_us.items())
+        + f"; host {prof_host_us:.1f} us/call under the profiler; bytes "
+        f"{pass_bytes}; plan {plan}")
     return {"name": "bev_bin_mean", "route": "cuda",
             "source": "lanemapping_tpu_torch/csrc/bev_bin.cu",
             "replaces": "tests/pallas_reference_bev.py:111",
             "launches": None, "max_abs_err": max_abs_err,
-            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "ms": t["kernel"]["ms"], "plain_ms": t["plain"]["ms"],
             "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": ms["library"], "library": "index_put_",
-            "passes_ms": pass_ms, "passes_bytes": pass_bytes,
+            "library_ms": t["library"]["ms"], "library": "index_put_",
+            "ms_back_to_back": t["kernel"]["ms_back_to_back"],
+            "host_us": t["kernel"]["host_us"],
+            "zeros_old_outputs_ms": t["zeros_old_outputs"]["ms"],
+            "passes_us": pass_us, "passes_bytes": pass_bytes,
             "cnt_mismatch": cnt_mismatch}
 
 
@@ -423,8 +441,7 @@ def load_lidar_batch(root, stems, n_points):
 def phase_k1z(root, stems, pc_range):
     import numpy as np
     import torch
-    from lanemapping_tpu_torch.kernels import voxel_bin
-    from lanemapping_tpu_torch.kernels.bin_bands import band_plan
+    from lanemapping_tpu_torch.kernels import bin_bands as bands, voxel_bin
     pts_np, msk_np = load_lidar_batch(root, stems[:B], N_POINTS)
     pts = torch.from_numpy(pts_np).cuda()
     msk = torch.from_numpy(msk_np).cuda()
@@ -475,57 +492,49 @@ def phase_k1z(root, stems, pc_range):
           "index_reduce_ yardstick means")
     check(torch.equal(index_put().view(B, Y, X, Z, C + 1)[..., C], c_ref),
           "index_put_ yardstick counts")
-    ms, runs = time_in_turns({
-        "kernel": lambda: voxel_bin.voxel_bin_mean(pts, msk, pc_range, GRID),
+    def kernel():
+        return voxel_bin.voxel_bin_mean(pts, msk, pc_range, GRID)
+
+    t, runs = time_in_turns({
+        "kernel": kernel,
         "plain": lambda: voxel_bin.voxel_bin_mean_ref(pts, msk, pc_range,
                                                       GRID),
-        "library": library, "index_put": index_put}, iters=10)
+        "library": library, "index_put": index_put,
+        "zeros_old_outputs": lambda: torch.zeros(B * Y * X * Z * (C + 1),
+                                                 device=pts.device)},
+        iters=10)
     # each input read once, the mean written once
     n_bytes = pts.numel() * 4 + msk.numel() + m.numel() * 4
     # 3 sub + 3 div per point, C + 1 adds per binned point, one division
     # per output
     n_ops = 6 * B * N_POINTS + (C + 1) * n_valid + m.numel()
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
-    log(f"K1z kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
-        f"index_reduce_ {ms['library']:.4f} ms, index_put_ "
-        f"{ms['index_put']:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); runs {runs}")
+    log(f"K1z kernel {fmt_times(t['kernel'])}, plain "
+        f"{fmt_times(t['plain'])}, index_reduce_ {fmt_times(t['library'])}, "
+        f"index_put_ {fmt_times(t['index_put'])}, bound {bound_ms:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s); old outputs' zero fill "
+        f"{fmt_times(t['zeros_old_outputs'])}; runs {runs}")
 
-    # the passes apart, on one plan and scratch, and the old zero fill
-    plan = band_plan(B, N_POINTS, Y, X, Z, C)
-    scratch = plan.scratch(pts.device)
-    pm = torch.empty_like(m)
-
-    def passes(which):
-        return lambda: voxel_bin.run_passes(pts, msk, pc_range, GRID, plan,
-                                            scratch, pm, which)
-
-    passes(voxel_bin.BUCKET_PASSES)()
-    passes(voxel_bin.MEAN)()
-    torch.cuda.synchronize()
-    check(bool(torch.allclose(pm, m_ref, rtol=1e-5, atol=1e-5)),
-          "K1z accumulate pass differs")
-    pass_ms, pass_runs = time_in_turns({
-        "hist": passes(voxel_bin.HIST),
-        "hist_scan": passes(voxel_bin.HIST | voxel_bin.SCAN),
-        "bucket": passes(voxel_bin.BUCKET_PASSES),
-        "mean": passes(voxel_bin.MEAN),
-        "zeros_old_outputs": lambda: torch.zeros(B * Y * X * Z * (C + 1),
-                                                 device=pts.device)},
-        iters=10)
+    plan = bands.band_plan(B, N_POINTS, Y, X, Z, C,
+                           voxel_bin.record_floats(C))
     pass_bytes = k_pass_bytes(pts, msk, n_valid, plan.rec, m.numel() * 4)
-    log(f"K1z passes: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in pass_ms.items())
-        + f"; bytes {pass_bytes}; plan {plan}; runs {pass_runs}")
+    pass_us, prof_host_us = profile_passes(kernel, 10)
+    log(f"K1z passes (profiler, device us/call): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in pass_us.items())
+        + f"; host {prof_host_us:.1f} us/call under the profiler; bytes "
+        f"{pass_bytes}; plan {plan}")
     return {"name": "voxel_bin_mean", "route": "cuda",
             "source": "lanemapping_tpu_torch/csrc/voxel_bin.cu",
             "replaces": "tests/pallas_reference_bev.py:171",
             "launches": None, "max_abs_err": max_abs_err,
-            "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "ms": t["kernel"]["ms"], "plain_ms": t["plain"]["ms"],
             "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": ms["library"], "library": "index_reduce_",
-            "index_put_ms": ms["index_put"], "passes_ms": pass_ms,
-            "passes_bytes": pass_bytes}
+            "library_ms": t["library"]["ms"], "library": "index_reduce_",
+            "index_put_ms": t["index_put"]["ms"],
+            "ms_back_to_back": t["kernel"]["ms_back_to_back"],
+            "host_us": t["kernel"]["host_us"],
+            "zeros_old_outputs_ms": t["zeros_old_outputs"]["ms"],
+            "passes_us": pass_us, "passes_bytes": pass_bytes}
 
 
 def head_shapes(S, P):

@@ -5,9 +5,10 @@ It mirrors the JAX package's module paths and names, imports ``torch`` and
 never ``jax`` nor ``lanemapping_tpu`` (what it needs of the JAX package's
 NumPy-only modules it keeps as its own copies), and runs its entry points on
 the card (``device="cuda"``) unless the caller asks for the CPU.  The TPU
-kernel of the ported paths (BEV binning) is two hand-written CUDA kernels,
-built with ``nvcc`` at first use: K1 (``csrc/bev_bin.cu``, the LAS
-rasterizer) and K1z (``csrc/voxel_bin.cu``, the LiDAR z-fold voxelizer).
+kernel of the ported paths (BEV binning) is two hand-written CUDA kernels
+on a shared band bucketing (``csrc/bin_bands.cuh``), built with ``nvcc`` at
+first use: K1 (``csrc/bev_bin.cu``, the LAS rasterizer) and K1z
+(``csrc/voxel_bin.cu``, the LiDAR z-fold voxelizer).
 """
 
 from .config.config import Config, ConfigDict  # noqa: F401

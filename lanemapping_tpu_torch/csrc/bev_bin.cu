@@ -12,13 +12,14 @@
 // band, a band being a few rows of one tile (`kernels/bin_bands.py::
 // band_plan`; 4 rows of 1152 cells, 36.9 KB of shared memory, on the
 // flagship grid).  A point's record is its value and its cell's index
-// within the band, 8 bytes.  Pass (D), here: one CTA per band zeroes its shared sums
-// and counts, accumulates its segment with shared-memory atomics and writes
-// the band's mean sum / max(count, 1) and count, one contiguous stretch of
-// each [B, img, img] output, in 16-byte stores, empty cells included.  Every
-// output byte is written once: no zero fill, no read-modify-write of device
-// memory, no separate mean pass.  About 15% of a survey's returns are road
-// paint on a few thousand cells; their atomics now meet in shared memory.
+// within the band, 8 bytes.  Pass (D), here: one CTA per band zeroes its
+// shared sums and counts, accumulates its segment with shared-memory
+// atomics and writes the band's mean sum / max(count, 1) and count, one
+// contiguous stretch of each [B, img, img] output, in 16-byte stores, empty
+// cells included.  Every output byte is written once: no zero fill, no
+// read-modify-write of device memory, no separate mean pass.  About 15% of
+// a survey's returns are road paint on a few thousand cells; their atomics
+// now meet in shared memory.
 //
 // Fused in (A) and (C): the range test against pc_range, the point mask,
 // the cell index floor((p - lo) / size), the `flip_rows` row (applied before
@@ -32,7 +33,7 @@
 // What bounds it: bytes.  The function must read the points and the mask
 // once and write the two [B, img, img] float32 images once.  The bucketing
 // adds a second read of the points and a write and a read of the 8-byte
-// records, padded to whole sectors per CTA and band.
+// records.
 //
 // Shared-memory atomics add in a different order on every run: counts are
 // exact, means are not bit-reproducible.
@@ -45,17 +46,36 @@ struct BevBinner {
   const float* __restrict__ points;
   const uint8_t* __restrict__ mask;
   int n_cols;
+  bool vec4;  // 4 columns, 16-byte aligned: one float4 load a point
   float lo_x, lo_y, size_x, size_y;
   int img, value_col, flip_rows;
-  static constexpr int n_vals = 1;
+  static constexpr int rec = 2;  // [value, cell index within the band]
 
-  __device__ __forceinline__ bool cell(long long i, int& row, int& col,
-                                       int& sub) const {
+  struct Point {
+    float x, y, v;  // v: the value column
+    bool valid;     // the mask
+  };
+
+  __device__ __forceinline__ Point load(long long i) const {
     const float* p = points + i * n_cols;
-    const float x = p[0], y = p[1];  // loaded beside the mask, not after it
-    if (!mask[i]) return false;
-    const float qx = (x - lo_x) / size_x;
-    const float qy = (y - lo_y) / size_y;
+    Point q;
+    if (vec4) {
+      const float4 f = *reinterpret_cast<const float4*>(p);
+      q.x = f.x, q.y = f.y;
+      q.v = value_col == 3 ? f.w : value_col == 2 ? f.z
+                                 : value_col == 1 ? f.y : f.x;
+    } else {
+      q.x = p[0], q.y = p[1], q.v = p[value_col];
+    }
+    q.valid = mask[i] != 0;
+    return q;
+  }
+
+  __device__ __forceinline__ bool cell(const Point& q, int& row, int& col,
+                                       int& sub) const {
+    if (!q.valid) return false;
+    const float qx = (q.x - lo_x) / size_x;
+    const float qy = (q.y - lo_y) / size_y;
     const float fimg = (float)img;
     if (!(qx >= 0.0f && qx < fimg && qy >= 0.0f && qy < fimg)) return false;
     col = (int)floorf(qx);
@@ -65,41 +85,18 @@ struct BevBinner {
     return true;
   }
 
-  static constexpr int rec = 2;  // [value, cell index]: 4 records a sector
-
-  __device__ __forceinline__ void write_record(long long i, float* dst,
-                                               int local) const {
-    *reinterpret_cast<float2*>(dst) =
-        make_float2(points[i * n_cols + value_col], __int_as_float(local));
+  __device__ __forceinline__ void record(const Point& q, long long, int local,
+                                         float* dst) const {
+    *reinterpret_cast<float2*>(dst) = make_float2(q.v, __int_as_float(local));
   }
 };
-
-// Sum of x over the lanes of `peers` (the lanes holding the same cell),
-// valid in the lowest lane of each peer group.  Every lane of the warp
-// takes part.
-__device__ __forceinline__ float reduce_peers(unsigned peers, float x) {
-  const int lane = threadIdx.x & 31;
-  int rel = __popc(peers & ((1u << lane) - 1));  // rank among the peers
-  peers &= ~((2u << lane) - 1);                  // the peers above this lane
-  while (__any_sync(0xffffffffu, peers)) {
-    const int next = __ffs(peers);
-    const float t = __shfl_sync(0xffffffffu, x, next - 1);
-    if (next) x += t;
-    peers &= ~__ballot_sync(0xffffffffu, rel & 1);
-    rel >>= 1;
-  }
-  return x;
-}
 
 __device__ __forceinline__ float mean_of(float sum, float n) {
   return n > 1.0f ? sum / n : sum;
 }
 
 // (D) one CTA per band: shared sums [cells], padded to 16 bytes, then
-// counts [cells].  With
-// WARP_AGG, the lanes of a warp that hold the same cell add their values
-// with shuffles first, and one of them does the two atomics.
-template <bool WARP_AGG>
+// counts [cells].
 __global__ void bev_mean_kernel(bins::BandGeom g,
                                 const int* __restrict__ band_off,
                                 const float2* __restrict__ slot_rec,
@@ -117,31 +114,12 @@ __global__ void bev_mean_kernel(bins::BandGeom g,
   bins::zero_shared(s_sum, ((max_cells + 3) & ~3) + max_cells);
   __syncthreads();
 
-  const int seg_begin = band_off[band], seg_end = band_off[band + 1];
-  if (WARP_AGG) {
-    const int lane = threadIdx.x & 31;
-    const int n_warps = blockDim.x >> 5;
-    for (int s0 = seg_begin + (threadIdx.x & ~31); s0 < seg_end;
-         s0 += n_warps * 32) {  // the same trip count on every lane
-      const int s = s0 + lane;
-      const float2 r = s < seg_end ? slot_rec[s]
-                                   : make_float2(0.f, __int_as_float(-1));
-      const int l = __float_as_int(r.y);  // -1 for padding and past the end
-      const unsigned peers = __match_any_sync(0xffffffffu, l);
-      const float sum = reduce_peers(peers, r.x);
-      if (l >= 0 && lane == __ffs(peers) - 1) {
-        atomicAdd(s_sum + l, sum);
-        atomicAdd(s_cnt + l, (float)__popc(peers));
-      }
-    }
-  } else {
-    for (int s = seg_begin + threadIdx.x; s < seg_end; s += blockDim.x) {
-      const float2 r = slot_rec[s];
-      const int l = __float_as_int(r.y);
-      if (l < 0) continue;  // padding
-      atomicAdd(s_sum + l, r.x);
-      atomicAdd(s_cnt + l, 1.0f);
-    }
+  const int seg_end = band_off[band + 1];
+  for (int s = band_off[band] + threadIdx.x; s < seg_end; s += blockDim.x) {
+    const float2 r = slot_rec[s];
+    const int l = __float_as_int(r.y);
+    atomicAdd(s_sum + l, r.x);
+    atomicAdd(s_cnt + l, 1.0f);
   }
   __syncthreads();
 
@@ -172,37 +150,31 @@ constexpr int MEAN_BLOCK = 256;
 
 }  // namespace
 
-// passes: bits of bins::Pass, (A) HIST, (B) SCAN, (C) SCATTER, (D) MEAN.
 // Plan (`kernels/bin_bands.py::band_plan`): rows_per_band, x_chunk,
-// n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record (2),
-// align records per sector run (4).  warp_agg selects the warp-aggregated
-// form of (D).
+// n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record (2).
 extern "C" int lm_bev_bin_mean(
     const float* points, const uint8_t* mask, int n_tiles, int n_points,
     int n_cols, float lo_x, float lo_y, float size_x, float size_y, int img,
     int value_col, int flip_rows, int rows_per_band, int x_chunk,
-    int n_xchunks, int bands_per_tile, int smem_bytes, int rec, int align,
+    int n_xchunks, int bands_per_tile, int smem_bytes, int rec,
     int* band_count, int* band_off, int* band_cursor, float* slot_rec,
-    float* mean, float* cnt, int passes, int warp_agg, void* stream_ptr) {
+    float* mean, float* cnt, void* stream_ptr) {
   if (rec != BevBinner::rec) return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = (cudaStream_t)stream_ptr;
   const bins::BandGeom g{img, img, 1, rows_per_band, x_chunk, n_xchunks,
                          bands_per_tile};
-  const BevBinner bn{points, mask, n_cols, lo_x, lo_y, size_x, size_y,
-                     img, value_col, flip_rows};
-  cudaError_t err = cudaSuccess;
-  if (passes & (bins::HIST | bins::SCAN | bins::SCATTER)) {
-    err = bins::bucket_points(bn, g, n_tiles, n_points, align, band_count,
-                              band_off, band_cursor, slot_rec, passes,
-                              stream);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const bool vec4 = n_cols == 4 && ((uintptr_t)points & 15) == 0;
+  const BevBinner bn{points, mask, n_cols, vec4, lo_x, lo_y, size_x,
+                     size_y, img, value_col, flip_rows};
+  cudaError_t err = bins::bucket_points(bn, g, n_tiles, n_points, band_count,
+                                        band_off, band_cursor, slot_rec,
+                                        stream);
+  if (err != cudaSuccess) return (int)err;
   const unsigned n_bands = (unsigned)n_tiles * bands_per_tile;
-  if ((passes & bins::MEAN) && n_bands > 0) {
-    auto kernel = warp_agg ? bev_mean_kernel<true> : bev_mean_kernel<false>;
-    err = bins::allow_smem(kernel, (size_t)smem_bytes);
+  if (n_bands > 0) {
+    err = bins::allow_smem<bev_mean_kernel>((size_t)smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<n_bands, MEAN_BLOCK, smem_bytes, stream>>>(
+    bev_mean_kernel<<<n_bands, MEAN_BLOCK, smem_bytes, stream>>>(
         g, band_off, reinterpret_cast<const float2*>(slot_rec), mean, cnt);
     err = cudaGetLastError();
   }

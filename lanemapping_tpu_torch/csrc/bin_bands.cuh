@@ -14,10 +14,10 @@
 //       global atomic per (CTA, band) follows.
 //   (B) band_scan_kernel: one CTA scans the band counts into segment
 //       offsets (exclusive; the total at the end) and the scatter cursors.
-//   (C) band_scatter_kernel: the same points again; each CTA reserves its
-//       slots per band with one global atomic, and each point writes its
-//       record (its n_vals values, then its cell's index within the band)
-//       to its band's segment.
+//   (C) band_scatter_kernel: the same points again, kept in registers; each
+//       CTA reserves its run of slots in each band with one global atomic,
+//       sorts its points by band in shared memory, and copies the sorted
+//       records out, so that a warp's stores fill consecutive slots.
 //   (D) in the kernel's own file: one CTA per band accumulates its segment
 //       in shared memory and writes every output element of the band once.
 //
@@ -30,17 +30,12 @@
 // `capacity` dropped overflow).  Slot order within a band, and with it the
 // float sum order of (D), varies from run to run; counts are exact.
 //
-// Whole sectors.  A CTA's run of slots in one band is short (a few points
-// to a few dozen), and device memory takes writes in 32-byte sectors: a
-// sector that two CTAs fill at different times leaves L2 half written and
-// costs a read-modify-write of DRAM.  So a record is `rec` floats, a power
-// of two >= n_vals + 1, and each CTA reserves its run in whole sectors
-// (`align` records), filling the rest with padding records (cell index -1,
-// which (D) skips).  Every sector of the scratch is then written by one CTA
-// within microseconds, whole.
-//
-// Every kernel here expects the CTA's tile in blockIdx.x / ctas_per_tile,
-// BLOCK threads and PPT points per thread.
+// A Binner supplies, for point i: `load(i)`, the columns a pass needs and
+// the mask, loaded together (16 bytes at once only where the caller found
+// the points 16-byte aligned); `cell(point, row, col, sub)`, false for a
+// masked or out-of-range point; `record(point, i, local, dst)`, the `rec`
+// floats that (D) reads back.  Every kernel here expects the CTA's tile in
+// blockIdx.x / ctas_per_tile, BLOCK threads and PPT points per thread.
 
 #pragma once
 
@@ -76,30 +71,49 @@ struct BandGeom {
   }
 };
 
-__device__ __forceinline__ int round_up(int n, int align) {
-  return (n + align - 1) / align * align;
+// In-place exclusive scan of s[0..n) by a CTA of BLOCK threads, each
+// taking a run of consecutive entries; returns the total.
+__device__ __forceinline__ int block_exclusive_scan(int* s, int n,
+                                                    int* s_warp) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (n + BLOCK - 1) / BLOCK;
+  const int lo = min(tid * per, n), hi = min(lo + per, n);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += s[i];
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < BLOCK / 32 ? s_warp[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += t;
+    }
+    if (lane < BLOCK / 32) s_warp[lane] = w;
+  }
+  __syncthreads();
+  int run = incl - sum + (warp ? s_warp[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    const int v = s[i];
+    s[i] = run;
+    run += v;
+  }
+  const int total = s_warp[BLOCK / 32 - 1];
+  __syncthreads();
+  return total;
 }
 
-// The element c of a record: a value, the cell index (as float bits), or 0.
-__device__ __forceinline__ float record_elem(const float* vals, int n_vals,
-                                             int c, int local) {
-  return c < n_vals ? vals[c] : (c == n_vals ? __int_as_float(local) : 0.f);
-}
-
-// A padding record: no values, cell index -1; rec is even.
-__device__ __forceinline__ void write_pad(float* dst, int rec, int n_vals) {
-  for (int c = 0; c < rec; c += 2)
-    *reinterpret_cast<float2*>(dst + c) =
-        make_float2(c == n_vals ? __int_as_float(-1) : 0.f,
-                    c + 1 == n_vals ? __int_as_float(-1) : 0.f);
-}
-
-// (A) band counts in whole sectors.  band_count [B * bands_per_tile] must
-// be zero on entry.
+// (A) band counts.  band_count [B * bands_per_tile] must be zero on entry.
 template <class Binner>
 __global__ void __launch_bounds__(BLOCK)
 band_hist_kernel(Binner bn, BandGeom g, int n_points, int ctas_per_tile,
-                 int align, int* __restrict__ band_count) {
+                 int* __restrict__ band_count) {
   extern __shared__ int s_hist[];  // [bands_per_tile]
   const int tile = blockIdx.x / ctas_per_tile;
   const int start = (blockIdx.x % ctas_per_tile) * POINTS_PER_CTA;
@@ -110,13 +124,13 @@ band_hist_kernel(Binner bn, BandGeom g, int n_points, int ctas_per_tile,
   for (int j = 0; j < PPT; ++j) {
     const int p = start + j * BLOCK + threadIdx.x;
     int row, col, sub;
-    if (p < n_points && bn.cell(base + p, row, col, sub))
+    if (p < n_points && bn.cell(bn.load(base + p), row, col, sub))
       atomicAdd(&s_hist[g.band(row, col)], 1);
   }
   __syncthreads();
   int* count = band_count + (long long)tile * g.bands_per_tile;
   for (int k = threadIdx.x; k < g.bands_per_tile; k += BLOCK)
-    if (s_hist[k]) atomicAdd(count + k, round_up(s_hist[k], align));
+    if (s_hist[k]) atomicAdd(count + k, s_hist[k]);
 }
 
 // (B) band_off [n + 1] = exclusive scan of band_count [n], total last;
@@ -169,101 +183,129 @@ band_scan_kernel(const int* __restrict__ band_count, int n,
   if (tid == 0) band_off[n] = carry;
 }
 
-// (C) record scatter into slot_rec [slots * rec].
+// (C) record scatter into slot_rec [slots * rec], through a shared-memory
+// sort of the CTA's points by band: records [POINTS_PER_CTA * rec] and
+// their bands [POINTS_PER_CTA], then per band its count, its first global
+// slot and its first sorted position.
 template <class Binner>
 __global__ void __launch_bounds__(BLOCK)
 band_scatter_kernel(Binner bn, BandGeom g, int n_points, int ctas_per_tile,
-                    int align, int* __restrict__ band_cursor,
+                    int* __restrict__ band_cursor,
                     float* __restrict__ slot_rec) {
-  extern __shared__ int s_mem[];
-  int* s_cnt = s_mem;                      // [bands_per_tile]
-  int* s_base = s_mem + g.bands_per_tile;  // [bands_per_tile]
+  extern __shared__ float4 s_mem4[];
+  const int rec = bn.rec;
+  float* s_rec = reinterpret_cast<float*>(s_mem4);
+  int* s_band = reinterpret_cast<int*>(s_rec + POINTS_PER_CTA * rec);
+  int* s_cnt = s_band + POINTS_PER_CTA;
+  int* s_base = s_cnt + g.bands_per_tile;
+  int* s_off = s_base + g.bands_per_tile;
+  __shared__ int s_warp[BLOCK / 32];
   const int tile = blockIdx.x / ctas_per_tile;
   const int start = (blockIdx.x % ctas_per_tile) * POINTS_PER_CTA;
   for (int k = threadIdx.x; k < g.bands_per_tile; k += BLOCK) s_cnt[k] = 0;
   __syncthreads();
   const long long base = (long long)tile * n_points;
+  typename Binner::Point pt[PPT];
   int band[PPT], rank[PPT], local[PPT];
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
     const int p = start + j * BLOCK + threadIdx.x;
     int row, col, sub;
     band[j] = -1;
-    if (p < n_points && bn.cell(base + p, row, col, sub)) {
-      band[j] = g.band(row, col);
-      local[j] = g.local(row, col, sub);
-      rank[j] = atomicAdd(&s_cnt[band[j]], 1);
+    if (p < n_points) {
+      pt[j] = bn.load(base + p);
+      if (bn.cell(pt[j], row, col, sub)) {
+        band[j] = g.band(row, col);
+        local[j] = g.local(row, col, sub);
+        rank[j] = atomicAdd(&s_cnt[band[j]], 1);
+      }
     }
   }
   __syncthreads();
   int* cursor = band_cursor + (long long)tile * g.bands_per_tile;
   for (int k = threadIdx.x; k < g.bands_per_tile; k += BLOCK) {
     const int n = s_cnt[k];
-    if (!n) continue;
-    const int padded = round_up(n, align);
-    const int b = atomicAdd(cursor + k, padded);
-    s_base[k] = b;
-    for (int r = n; r < padded; ++r)
-      write_pad(slot_rec + (long long)(b + r) * bn.rec, bn.rec, bn.n_vals);
+    s_off[k] = n;
+    if (n) s_base[k] = atomicAdd(cursor + k, n);
   }
   __syncthreads();
+  const int total = block_exclusive_scan(s_off, g.bands_per_tile, s_warp);
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
     if (band[j] < 0) continue;
-    const int slot = s_base[band[j]] + rank[j];
-    bn.write_record(base + start + j * BLOCK + threadIdx.x,
-                    slot_rec + (long long)slot * bn.rec, local[j]);
+    const int t = s_off[band[j]] + rank[j];
+    bn.record(pt[j], base + start + j * BLOCK + threadIdx.x, local[j],
+              s_rec + t * rec);
+    s_band[t] = band[j];
+  }
+  __syncthreads();
+  // consecutive sorted positions of one band go to consecutive slots
+  for (int t = threadIdx.x; t < total; t += BLOCK) {
+    const int b = s_band[t];
+    float* dst = slot_rec + (long long)(s_base[b] + t - s_off[b]) * rec;
+    const float* src = s_rec + t * rec;
+    if ((rec & 3) == 0) {
+      for (int c = 0; c < rec; c += 4)
+        *reinterpret_cast<float4*>(dst + c) =
+            *reinterpret_cast<const float4*>(src + c);
+    } else {
+      for (int c = 0; c < rec; c += 2)
+        *reinterpret_cast<float2*>(dst + c) =
+            *reinterpret_cast<const float2*>(src + c);
+    }
   }
 }
 
 // Shared-memory bytes above the 48 KB default need the opt-in attribute.
-template <class Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+// It is set once per kernel and device, and again only for a larger size.
+template <auto Kernel>
+inline cudaError_t allow_smem(size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  constexpr int kDevices = 64;
+  static size_t granted[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && granted[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < kDevices) granted[dev] = bytes;
+  return err;
 }
 
-// The passes of a launch, as bits: each needs the ones before it to have
-// run on the same scratch, in this launch or an earlier one.
-enum Pass { HIST = 1, SCAN = 2, SCATTER = 4, MEAN = 8 };
-
-// Passes (A)-(C) of `passes` on `stream`.  Scratch: band_count,
-// band_cursor [n_bands], band_off [n_bands + 1], slot_rec [slots * rec]
-// (`BandPlan.n_slots`).  Returns the first CUDA error.
+// Passes (A)-(C) on `stream`.  Scratch: band_count, band_cursor [n_bands],
+// band_off [n_bands + 1], slot_rec [B * n_points * rec].  Returns the first
+// CUDA error.
 template <class Binner>
 cudaError_t bucket_points(const Binner& bn, const BandGeom& g, int n_tiles,
-                          int n_points, int align, int* band_count,
-                          int* band_off, int* band_cursor, float* slot_rec,
-                          int passes, cudaStream_t stream) {
+                          int n_points, int* band_count, int* band_off,
+                          int* band_cursor, float* slot_rec,
+                          cudaStream_t stream) {
   const int n_bands = n_tiles * g.bands_per_tile;
   const int ctas_per_tile = (n_points + POINTS_PER_CTA - 1) / POINTS_PER_CTA;
   const unsigned grid = (unsigned)n_tiles * ctas_per_tile;
   const size_t hist_smem = sizeof(int) * (size_t)g.bands_per_tile;
-  cudaError_t err = cudaSuccess;
-  if (passes & HIST) {
-    err = cudaMemsetAsync(band_count, 0, sizeof(int) * (size_t)n_bands,
-                          stream);
-    if (err != cudaSuccess) return err;
-  }
-  if ((passes & HIST) && grid > 0) {
-    err = allow_smem(band_hist_kernel<Binner>, hist_smem);
+  const size_t scatter_smem =
+      sizeof(float) * (size_t)POINTS_PER_CTA * (bn.rec + 1) + 3 * hist_smem;
+  cudaError_t err = cudaMemsetAsync(band_count, 0,
+                                    sizeof(int) * (size_t)n_bands, stream);
+  if (err != cudaSuccess) return err;
+  if (grid > 0) {
+    err = allow_smem<band_hist_kernel<Binner>>(hist_smem);
     if (err != cudaSuccess) return err;
     band_hist_kernel<Binner><<<grid, BLOCK, hist_smem, stream>>>(
-        bn, g, n_points, ctas_per_tile, align, band_count);
+        bn, g, n_points, ctas_per_tile, band_count);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (passes & SCAN) {
-    band_scan_kernel<<<1, SCAN_BLOCK, 0, stream>>>(band_count, n_bands,
-                                                   band_off, band_cursor);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if ((passes & SCATTER) && grid > 0) {
-    err = allow_smem(band_scatter_kernel<Binner>, 2 * hist_smem);
+  band_scan_kernel<<<1, SCAN_BLOCK, 0, stream>>>(band_count, n_bands,
+                                                 band_off, band_cursor);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (grid > 0) {
+    err = allow_smem<band_scatter_kernel<Binner>>(scatter_smem);
     if (err != cudaSuccess) return err;
-    band_scatter_kernel<Binner><<<grid, BLOCK, 2 * hist_smem, stream>>>(
-        bn, g, n_points, ctas_per_tile, align, band_cursor, slot_rec);
+    band_scatter_kernel<Binner><<<grid, BLOCK, scatter_smem, stream>>>(
+        bn, g, n_points, ctas_per_tile, band_cursor, slot_rec);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;

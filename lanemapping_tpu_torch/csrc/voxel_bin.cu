@@ -12,10 +12,11 @@
 // Design (passes (A)-(C) in `bin_bands.cuh`): the points are bucketed by
 // band, a band being one y row of one tile, cut into x-chunks
 // (`kernels/bin_bands.py::band_plan`; 192 x at 576 x 576 x 10 with C = 4,
-// 38.4 KB of shared memory).  A point's record is its C features and its
-// voxel's index within the band, in 32 bytes at C = 4.  Pass (D), here: one CTA per band zeroes
-// its shared sums [cells, C] and counts [cells], accumulates its segment
-// with shared-memory atomics and writes sum / max(count, 1) for the band's
+// 38.4 KB of shared memory).  A point's record is the point itself, 16
+// bytes at C = 4.  Pass (D), here: one CTA per band zeroes its shared sums
+// [cells, C] and counts [cells], finds each record's voxel again with the
+// same arithmetic, accumulates with shared-memory atomics and writes
+// sum / max(count, 1) for the band's
 // X-chunk * Z * C outputs, which are one contiguous stretch of the z-fold
 // layout [B, Y, X, Z*C], in 16-byte stores, zeros of empty voxels included.
 // Every output byte is written once: there is no zero fill, no read-modify-
@@ -33,7 +34,7 @@
 // What bounds it: bytes.  The function must read the points (4 * C bytes
 // each) and the mask once and write the mean once (425 MB at B = 8 on the
 // 576 x 576 x 10 grid with C = 4).  The bucketing adds a second read of the
-// points and a write and a read of one 32-byte record per point (C = 4).
+// points and a write and a read of each binned point.
 //
 // Shared-memory atomics add in a different order on every run: counts are
 // exact, means are not bit-reproducible.
@@ -46,22 +47,32 @@ struct VoxelBinner {
   const float* __restrict__ points;
   const uint8_t* __restrict__ mask;
   int n_vals;  // C: every column of a point is averaged
-  int rec;     // floats per record: a power of two >= C + 1
+  int rec;     // floats per record: C rounded up to a power of two
+  bool vec4;   // C == 4, 16-byte aligned: one float4 load a point
   float lo_x, lo_y, lo_z, size_x, size_y, size_z;
   int gx, gy, gz;
 
-  // row = y voxel, col = x voxel, sub = z voxel
-  __device__ __forceinline__ bool cell(long long i, int& row, int& col,
-                                       int& sub) const {
+  struct Point {
+    float x, y, z, w;  // the first four columns (w 0 where C == 3)
+    bool valid;        // the mask
+  };
+
+  __device__ __forceinline__ Point load(long long i) const {
     const float* p = points + i * n_vals;
-    float x, y, z;  // loaded beside the mask, not after it
-    if (n_vals == 4) {
+    Point q;
+    if (vec4) {
       const float4 f = *reinterpret_cast<const float4*>(p);
-      x = f.x, y = f.y, z = f.z;
+      q.x = f.x, q.y = f.y, q.z = f.z, q.w = f.w;
     } else {
-      x = p[0], y = p[1], z = p[2];
+      q.x = p[0], q.y = p[1], q.z = p[2], q.w = n_vals > 3 ? p[3] : 0.0f;
     }
-    if (!mask[i]) return false;
+    q.valid = mask[i] != 0;
+    return q;
+  }
+
+  // row = y voxel, col = x voxel, sub = z voxel; false out of range
+  __device__ __forceinline__ bool voxel(float x, float y, float z, int& row,
+                                        int& col, int& sub) const {
     const float qx = (x - lo_x) / size_x;
     const float qy = (y - lo_y) / size_y;
     const float qz = (z - lo_z) / size_z;
@@ -74,33 +85,33 @@ struct VoxelBinner {
     return true;
   }
 
-  // the record [C features, voxel index, zeros], whole
-  __device__ __forceinline__ void write_record(long long i, float* dst,
-                                               int local) const {
-    const float* p = points + i * n_vals;
-    if (n_vals == 4) {  // rec == 8: two 16-byte stores, one sector
-      reinterpret_cast<float4*>(dst)[0] =
-          *reinterpret_cast<const float4*>(p);
-      reinterpret_cast<float4*>(dst)[1] =
-          make_float4(__int_as_float(local), 0.f, 0.f, 0.f);
+  __device__ __forceinline__ bool cell(const Point& q, int& row, int& col,
+                                       int& sub) const {
+    return q.valid && voxel(q.x, q.y, q.z, row, col, sub);
+  }
+
+  // the record is the point itself, zero-padded to rec floats: (D) finds
+  // its voxel again from x, y, z with the same arithmetic
+  __device__ __forceinline__ void record(const Point& q, long long i, int,
+                                         float* dst) const {
+    if (n_vals == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(q.x, q.y, q.z, q.w);
       return;
     }
-    for (int c = 0; c < rec; c += 2)
-      *reinterpret_cast<float2*>(dst + c) =
-          make_float2(bins::record_elem(p, n_vals, c, local),
-                      bins::record_elem(p, n_vals, c + 1, local));
+    const float* p = points + i * n_vals;
+    for (int c = 0; c < rec; ++c) dst[c] = c < n_vals ? p[c] : 0.0f;
   }
 };
 
 // (D) one CTA per band: shared sums [cells * C], padded to 16 bytes, then
 // counts [cells].
-__global__ void voxel_mean_kernel(bins::BandGeom g, int n_vals, int rec,
+__global__ void voxel_mean_kernel(VoxelBinner bn, bins::BandGeom g,
                                   const int* __restrict__ band_off,
                                   const float* __restrict__ slot_rec,
                                   float* __restrict__ out) {
   extern __shared__ float4 s_mem4[];
   float* s_sum = reinterpret_cast<float*>(s_mem4);
-  const int C = n_vals;
+  const int C = bn.n_vals;
   const int band = blockIdx.x;
   const int tile = band / g.bands_per_tile;
   int r0, rows, x0, cols;
@@ -114,12 +125,18 @@ __global__ void voxel_mean_kernel(bins::BandGeom g, int n_vals, int rec,
 
   const int seg_end = band_off[band + 1];
   for (int s = band_off[band] + threadIdx.x; s < seg_end; s += blockDim.x) {
-    const float* r = slot_rec + (long long)s * rec;
-    const int l = __float_as_int(r[C]);
-    if (l < 0) continue;  // padding
+    const float* r = slot_rec + (long long)s * bn.rec;
+    float4 f;
+    if (C == 4) {
+      f = *reinterpret_cast<const float4*>(r);
+    } else {
+      f = make_float4(r[0], r[1], r[2], 0.0f);
+    }
+    int row, col, sub;
+    if (!bn.voxel(f.x, f.y, f.z, row, col, sub)) continue;  // never: binned
+    const int l = g.local(row, col, sub);
     float* dst = s_sum + l * C;
     if (C == 4) {
-      const float4 f = *reinterpret_cast<const float4*>(r);
       atomicAdd(dst + 0, f.x);
       atomicAdd(dst + 1, f.y);
       atomicAdd(dst + 2, f.z);
@@ -166,35 +183,31 @@ constexpr int MEAN_BLOCK = 256;
 
 }  // namespace
 
-// passes: bits of bins::Pass, (A) HIST, (B) SCAN, (C) SCATTER, (D) MEAN.
 // Plan (`kernels/bin_bands.py::band_plan`): rows_per_band, x_chunk,
-// n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record,
-// align records per sector run.
+// n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record.
 extern "C" int lm_voxel_bin_mean(
     const float* points, const uint8_t* mask, int n_tiles, int n_points,
     int n_cols, float lo_x, float lo_y, float lo_z, float size_x,
     float size_y, float size_z, int gx, int gy, int gz, int rows_per_band,
     int x_chunk, int n_xchunks, int bands_per_tile, int smem_bytes, int rec,
-    int align, int* band_count, int* band_off, int* band_cursor,
-    float* slot_rec, float* out, int passes, void* stream_ptr) {
+    int* band_count, int* band_off, int* band_cursor, float* slot_rec,
+    float* out, void* stream_ptr) {
   const cudaStream_t stream = (cudaStream_t)stream_ptr;
   const bins::BandGeom g{gy, gx, gz, rows_per_band, x_chunk, n_xchunks,
                          bands_per_tile};
-  const VoxelBinner bn{points, mask, n_cols, rec, lo_x, lo_y, lo_z, size_x,
-                       size_y, size_z, gx, gy, gz};
-  cudaError_t err = cudaSuccess;
-  if (passes & (bins::HIST | bins::SCAN | bins::SCATTER)) {
-    err = bins::bucket_points(bn, g, n_tiles, n_points, align, band_count,
-                              band_off, band_cursor, slot_rec, passes,
-                              stream);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const bool vec4 = n_cols == 4 && ((uintptr_t)points & 15) == 0;
+  const VoxelBinner bn{points, mask, n_cols, rec, vec4, lo_x, lo_y, lo_z,
+                       size_x, size_y, size_z, gx, gy, gz};
+  cudaError_t err = bins::bucket_points(bn, g, n_tiles, n_points, band_count,
+                                        band_off, band_cursor, slot_rec,
+                                        stream);
+  if (err != cudaSuccess) return (int)err;
   const unsigned n_bands = (unsigned)n_tiles * bands_per_tile;
-  if ((passes & bins::MEAN) && n_bands > 0) {
-    err = bins::allow_smem(voxel_mean_kernel, (size_t)smem_bytes);
+  if (n_bands > 0) {
+    err = bins::allow_smem<voxel_mean_kernel>((size_t)smem_bytes);
     if (err != cudaSuccess) return (int)err;
     voxel_mean_kernel<<<n_bands, MEAN_BLOCK, smem_bytes, stream>>>(
-        g, n_cols, rec, band_off, slot_rec, out);
+        bn, g, band_off, slot_rec, out);
     err = cudaGetLastError();
   }
   return (int)err;

@@ -18,20 +18,16 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .bin_bands import BandPlan, band_plan
+from .bin_bands import SCRATCH, band_plan
 from .build import load_library
 
 _SIGNATURES = {
     "lm_bev_bin_mean": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_int] * 10
-        + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_void_p],
+         ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_int] * 9
+        + [ctypes.c_void_p] * 7,
         ctypes.c_int),
 }
-HIST, SCAN, SCATTER, MEAN = 1, 2, 4, 8  # bins::Pass
-BUCKET_PASSES, ALL_PASSES = HIST | SCAN | SCATTER, 15
-WARP_AGG = False  # warp-aggregated atomics in pass (D)
 
 
 def bin_geometry(pc_range: Sequence[float], img: int
@@ -119,29 +115,11 @@ def bev_bin_mean(points: torch.Tensor, mask: torch.Tensor,
     if max(B, N, img) >= 2 ** 31:
         raise ValueError("bev_bin_mean: sizes must fit in int32")
     plan = band_plan(B, N, img, img)
+    lo, size = bin_geometry(pc_range, img)
     mean = torch.empty((B, img, img), dtype=torch.float32,
                        device=points.device)
     cnt = torch.empty_like(mean)
-    run_passes(points, mask, pc_range, img, intensity_col, flip_rows, plan,
-               plan.scratch(points.device), mean, cnt, ALL_PASSES)
-    bev_bin_mean.launches += 1
-    return mean, cnt
-
-
-bev_bin_mean.launches = 0
-
-
-def run_passes(points: torch.Tensor, mask: torch.Tensor,
-               pc_range: Sequence[float], img: int, intensity_col: int,
-               flip_rows: bool, plan: BandPlan, scratch: dict,
-               mean: torch.Tensor, cnt: torch.Tensor, passes: int,
-               warp_agg: bool = WARP_AGG) -> None:
-    """The launch of ``bev_bin_mean`` on checked inputs, with the passes
-    chosen (a bit set of ``HIST``, ``SCAN``, ``SCATTER`` and ``MEAN``, each
-    needing the ones before it run on the same scratch), so that the passes
-    can be timed apart.  Counts nothing."""
-    B, N, C = points.shape
-    lo, size = bin_geometry(pc_range, img)
+    scratch = plan.scratch(points.device)
     lib = load_library("bev_bin", _SIGNATURES)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
@@ -149,8 +127,13 @@ def run_passes(points: torch.Tensor, mask: torch.Tensor,
             points.data_ptr(), mask.data_ptr(), B, N, C,
             float(lo[0]), float(lo[1]), float(size[0]), float(size[1]),
             img, intensity_col, int(flip_rows), *plan.kernel_args(),
-            *(scratch[k].data_ptr() for k in ("band_count", "band_off",
-                                              "band_cursor", "slot_rec")),
-            mean.data_ptr(), cnt.data_ptr(), passes, int(warp_agg), stream)
+            *(scratch[k].data_ptr() for k in SCRATCH), mean.data_ptr(),
+            cnt.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"bev_bin kernel launch failed: CUDA error {rc}")
+    bev_bin_mean.launches += 1
+    return mean, cnt
+
+
+bev_bin_mean.launches = 0
+

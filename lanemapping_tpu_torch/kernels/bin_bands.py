@@ -8,12 +8,14 @@ band is ``rows_per_band`` rows by ``x_chunk`` columns of one tile's
 plain Python, so that the CPU tests reach it; the CUDA code only follows
 it.  A band spans whole rows, or one row cut into x-chunks when one row
 does not fit the budget, so its cells are one contiguous stretch of a
-row-major output.
+row-major output.  Between the passes each binned point is a record of
+``rec`` floats in its band's segment of the scratch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
@@ -21,8 +23,10 @@ import torch
 
 SMEM_LIMIT = 232448        # dynamic shared memory one CTA may have on H100
 BAND_BUDGET = 40 * 1024    # target shared memory of a band: 5 CTAs per SM
-HIST_BUDGET = 48 * 1024    # (C) keeps two ints per band of a tile in it
+HIST_BUDGET = 48 * 1024    # (C) keeps three ints per band of a tile
 POINTS_PER_CTA = 256 * 16  # bins::BLOCK * bins::PPT of passes (A) and (C)
+# the scratch of a launch, in the order of the kernels' C arguments
+SCRATCH = ("band_count", "band_off", "band_cursor", "slot_rec")
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -43,6 +47,7 @@ class BandPlan:
     width: int
     depth: int
     n_vals: int
+    rec: int
     rows_per_band: int
     x_chunk: int
     n_xchunks: int
@@ -63,28 +68,20 @@ class BandPlan:
 
     @property
     def hist_smem_bytes(self) -> int:
-        """Shared memory per CTA of pass (C), the larger of (A) and (C)."""
-        return 8 * self.bands_per_tile
+        """Band bookkeeping per CTA of pass (C): count, first slot and
+        first sorted position of each band of a tile."""
+        return 12 * self.bands_per_tile
 
     @property
-    def rec(self) -> int:
-        """Floats per record: the values, then the cell index, padded to a
-        power of two."""
-        return 1 << self.n_vals.bit_length()
-
-    @property
-    def align(self) -> int:
-        """Records per 32-byte sector: a CTA's run in one band is padded to
-        a multiple of it."""
-        return max(1, 8 // self.rec)
+    def scatter_smem_bytes(self) -> int:
+        """Shared memory per CTA of pass (C): the CTA's records sorted by
+        band, their bands, and the band bookkeeping."""
+        return 4 * POINTS_PER_CTA * (self.rec + 1) + self.hist_smem_bytes
 
     @property
     def n_slots(self) -> int:
-        """Record slots for the worst case: every point of every tile, plus
-        the padding of every (CTA, band) run."""
-        ctas = self.n_tiles * _ceil_div(self.n_points, POINTS_PER_CTA)
-        return (self.n_tiles * self.n_points
-                + (self.align - 1) * ctas * self.bands_per_tile)
+        """Record slots: every point of every tile, the worst case."""
+        return self.n_tiles * self.n_points
 
     def band_rect(self, k: int) -> Tuple[int, int, int, int]:
         """Band ``k`` of a tile: (first row, rows, first column, columns)."""
@@ -105,7 +102,7 @@ class BandPlan:
 
     def kernel_args(self) -> Tuple[int, ...]:
         return (self.rows_per_band, self.x_chunk, self.n_xchunks,
-                self.bands_per_tile, self.smem_bytes, self.rec, self.align)
+                self.bands_per_tile, self.smem_bytes, self.rec)
 
     def scratch(self, device) -> Dict[str, torch.Tensor]:
         """Band counts, offsets and cursors, and the record slots, sized for
@@ -132,34 +129,39 @@ def _split(height: int, width: int, depth: int, n_vals: int, budget: int
     return 1, x_chunk, _ceil_div(width, x_chunk)
 
 
+@functools.lru_cache(maxsize=64)
 def band_plan(n_tiles: int, n_points: int, height: int, width: int,
-              depth: int = 1, n_vals: int = 1, budget: int = BAND_BUDGET
-              ) -> BandPlan:
+              depth: int = 1, n_vals: int = 1, rec: int = 2) -> BandPlan:
     """The bands of a [height, width, depth] grid with ``n_vals`` sums per
-    cell, for ``n_tiles`` tiles of ``n_points`` points each.
+    cell, for ``n_tiles`` tiles of ``n_points`` points each, whose records
+    are ``rec`` floats (a power of two: K1's [value, cell index] is 2,
+    K1z's record is the point itself).
 
-    Bands are as large as ``budget`` bytes of shared memory allow: whole
-    rows while a row fits, else one row in even x-chunks.  When a tile has
-    too many bands for pass (C)'s histogram, the budget grows to the
-    card's limit.  Raises where even that does not fit."""
+    Bands are as large as ``BAND_BUDGET`` bytes of shared memory allow:
+    whole rows while a row fits, else one row in even x-chunks.  When a
+    tile has too many bands for pass (C)'s bookkeeping, the budget grows to
+    the card's limit.  Raises where even that does not fit: pass (C) holds
+    4,096 records in shared memory, so ``rec`` is at most 8 (K1z takes at
+    most 8 columns).  Plans are cached by their arguments."""
     if min(height, width, depth, n_vals) < 1 or min(n_tiles, n_points) < 0:
         raise ValueError(f"bad grid {height}x{width}x{depth}, n_vals "
                          f"{n_vals}, {n_tiles} tiles of {n_points} points")
-    if n_tiles * n_points >= 2 ** 31:
-        raise ValueError("binning: B * N must fit in int32")
-    for b in (budget, SMEM_LIMIT):
+    if rec < 2 or rec & (rec - 1):
+        raise ValueError(f"binning: record of {rec} floats, not a power of "
+                         f"two >= 2")
+    if n_tiles * n_points * rec >= 2 ** 31:
+        raise ValueError("binning: B * N records must fit in int32")
+    for b in (BAND_BUDGET, SMEM_LIMIT):
         rows, x_chunk, n_xchunks = _split(height, width, depth, n_vals, b)
         plan = BandPlan(n_tiles, n_points, height, width, depth, n_vals,
-                        rows, x_chunk, n_xchunks,
+                        rec, rows, x_chunk, n_xchunks,
                         _ceil_div(height, rows) * n_xchunks)
         if plan.hist_smem_bytes <= HIST_BUDGET:
             break
-    if plan.smem_bytes > SMEM_LIMIT or plan.hist_smem_bytes > SMEM_LIMIT:
+    if max(plan.smem_bytes, plan.scatter_smem_bytes) > SMEM_LIMIT:
         raise ValueError(
             f"binning: a {height}x{width}x{depth} grid with {n_vals} values "
             f"per cell needs {plan.smem_bytes} B per band and "
-            f"{plan.hist_smem_bytes} B of band histogram; the card allows "
+            f"{plan.scatter_smem_bytes} B per scatter CTA; the card allows "
             f"{SMEM_LIMIT}")
-    if plan.n_slots >= 2 ** 31:
-        raise ValueError("binning: too many record slots for int32")
     return plan

@@ -18,18 +18,16 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .bin_bands import BandPlan, band_plan
+from .bin_bands import SCRATCH, band_plan
 from .build import load_library
 
 _SIGNATURES = {
     "lm_voxel_bin_mean": (
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_int] * 10
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_int] * 9
+        + [ctypes.c_void_p] * 6,
         ctypes.c_int),
 }
-HIST, SCAN, SCATTER, MEAN = 1, 2, 4, 8  # bins::Pass
-BUCKET_PASSES, ALL_PASSES = HIST | SCAN | SCATTER, 15
 
 
 def voxel_geometry(pc_range: Sequence[float], grid: Sequence[int]
@@ -82,6 +80,12 @@ def voxel_bin_sums_ref(points: torch.Tensor, mask: torch.Tensor,
     return sums.view(B, Y, X, Z, C), cnts.view(B, Y, X, Z)
 
 
+def record_floats(n_cols: int) -> int:
+    """Floats of K1z's record between its passes: the point itself, padded
+    to a power of two."""
+    return 1 << (n_cols - 1).bit_length()
+
+
 def voxel_bin_mean_ref(points: torch.Tensor, mask: torch.Tensor,
                        pc_range: Sequence[float], grid: Sequence[int]
                        ) -> torch.Tensor:
@@ -98,8 +102,8 @@ def voxel_bin_mean(points: torch.Tensor, mask: torch.Tensor,
                    ) -> torch.Tensor:
     """[B,N,C] float32 points, [B,N] bool mask -> per-voxel means
     [B, Y, X, Z*C] float32 on the points' device, for ``grid`` = (X, Y, Z).
-    CUDA tensors run the K1z kernel; ``voxel_bin_mean.launches`` counts its
-    launches."""
+    CUDA tensors run the K1z kernel, for 3 <= C <= 8 (``band_plan``);
+    ``voxel_bin_mean.launches`` counts its launches."""
     if points.device.type == "cpu":
         return voxel_bin_mean_ref(points, mask, pc_range, grid)
     if points.device.type != "cuda":
@@ -120,37 +124,24 @@ def voxel_bin_mean(points: torch.Tensor, mask: torch.Tensor,
     X, Y, Z = (int(g) for g in grid)
     if min(X, Y, Z) < 1 or max(B, N, X, Y, Z) >= 2 ** 31:
         raise ValueError(f"bad grid {tuple(grid)} or sizes beyond int32")
-    plan = band_plan(B, N, Y, X, Z, C)
+    plan = band_plan(B, N, Y, X, Z, C, record_floats(C))
+    lo, size = voxel_geometry(pc_range, (X, Y, Z))
     out = torch.empty((B, Y, X, Z * C), dtype=torch.float32,
                       device=points.device)
-    run_passes(points, mask, pc_range, (X, Y, Z), plan,
-               plan.scratch(points.device), out, ALL_PASSES)
+    scratch = plan.scratch(points.device)
+    lib = load_library("voxel_bin", _SIGNATURES)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        rc = lib.lm_voxel_bin_mean(
+            points.data_ptr(), mask.data_ptr(), B, N, C,
+            *(float(v) for v in lo), *(float(v) for v in size), X, Y, Z,
+            *plan.kernel_args(), *(scratch[k].data_ptr() for k in SCRATCH),
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"voxel_bin kernel launch failed: CUDA error {rc}")
     voxel_bin_mean.launches += 1
     return out
 
 
 voxel_bin_mean.launches = 0
 
-
-def run_passes(points: torch.Tensor, mask: torch.Tensor,
-               pc_range: Sequence[float], grid: Sequence[int],
-               plan: BandPlan, scratch: dict, out: torch.Tensor,
-               passes: int) -> None:
-    """The launch of ``voxel_bin_mean`` on checked inputs, with the passes
-    chosen (a bit set of ``HIST``, ``SCAN``, ``SCATTER`` and ``MEAN``, each
-    needing the ones before it run on the same scratch), so that the passes
-    can be timed apart.  Counts nothing."""
-    B, N, C = points.shape
-    lo, size = voxel_geometry(pc_range, grid)
-    lib = load_library("voxel_bin", _SIGNATURES)
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = lib.lm_voxel_bin_mean(
-            points.data_ptr(), mask.data_ptr(), B, N, C,
-            *(float(v) for v in lo), *(float(v) for v in size), *grid,
-            *plan.kernel_args(),
-            *(scratch[k].data_ptr() for k in ("band_count", "band_off",
-                                              "band_cursor", "slot_rec")),
-            out.data_ptr(), passes, stream)
-    if rc != 0:
-        raise RuntimeError(f"voxel_bin kernel launch failed: CUDA error {rc}")

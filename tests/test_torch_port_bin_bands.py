@@ -5,11 +5,9 @@ The plan decides how the CUDA kernels cut a grid into bands; the kernels
 only follow it.  For each case: every cell of the grid lies in exactly one
 band, the cell index a band gives it lands on the cell's own row-major
 output position (so a band's outputs are one contiguous stretch), shared
-memory stays within the card's 227 KB, and the scratch holds every point
-and every run's padding.
-A numpy model of the four passes on a plan, with each CTA's run padded to
-whole sectors as the kernels pad it, then reproduces the plain versions'
-means, counts exactly.
+memory stays within the card's 227 KB, and the scratch holds every point.
+A numpy model of the four passes on a plan then reproduces the plain
+versions' means, counts exactly.
 """
 
 import numpy as np
@@ -18,14 +16,16 @@ import torch
 
 PC_RANGE = (-15.0, -25.0, -2.0, 15.0, 25.0, 2.0)
 
-# (n_tiles, n_points, height, width, depth, n_vals)
+# (n_tiles, n_points, height, width, depth, n_vals, record floats): K1's
+# record is [value, cell index], K1z's the point itself, padded
 CASES = {
-    "flagship_1152": (8, 1 << 19, 1152, 1152, 1, 1),
-    "lidar_576x576x10": (8, 1 << 19, 576, 576, 10, 4),
-    "tiny_flagship_192": (2, 1 << 16, 192, 192, 1, 1),
-    "tiny_lidar_96x96x4": (2, 4096, 96, 96, 4, 4),
-    **{f"lidar_C{c}": (8, 1 << 19, 576, 576, 10, c) for c in range(3, 9)},
-    "row_beyond_budget": (1, 1000, 64, 8192, 10, 8),
+    "flagship_1152": (8, 1 << 19, 1152, 1152, 1, 1, 2),
+    "lidar_576x576x10": (8, 1 << 19, 576, 576, 10, 4, 4),
+    "tiny_flagship_192": (2, 1 << 16, 192, 192, 1, 1, 2),
+    "tiny_lidar_96x96x4": (2, 4096, 96, 96, 4, 4, 4),
+    **{f"lidar_C{c}": (8, 1 << 19, 576, 576, 10, c, 4 if c <= 4 else 8)
+       for c in range(3, 9)},
+    "row_beyond_budget": (1, 1000, 64, 8192, 10, 8, 8),
 }
 
 
@@ -34,8 +34,8 @@ def test_band_plan_covers_grid_once_within_shared_memory(case):
     from lanemapping_tpu_torch.kernels.bin_bands import (SMEM_LIMIT,
                                                          band_plan)
 
-    B, N, H, W, D, V = CASES[case]
-    plan = band_plan(B, N, H, W, D, V)
+    B, N, H, W, D, V, rec = CASES[case]
+    plan = band_plan(B, N, H, W, D, V, rec)
     # a band spans whole rows, or one row in x-chunks
     assert plan.x_chunk == W or plan.rows_per_band == 1
     cover = np.zeros((H, W), np.int32)
@@ -55,12 +55,8 @@ def test_band_plan_covers_grid_once_within_shared_memory(case):
                                   (row * W + col) * D + sub)
     assert local.max() < plan.cells_per_band
     assert plan.smem_bytes <= SMEM_LIMIT
-    assert plan.hist_smem_bytes <= SMEM_LIMIT
-    # a record holds the values and the cell index; a sector holds whole
-    # records; the slots hold every point and every run's padding
-    assert plan.rec >= V + 1 and plan.rec & (plan.rec - 1) == 0
-    assert (plan.align * plan.rec * 4) % 32 == 0
-    assert plan.n_slots >= B * N
+    assert plan.scatter_smem_bytes <= SMEM_LIMIT
+    assert plan.n_slots == B * N  # every point of every tile
     scratch = plan.scratch("meta")
     assert scratch["slot_rec"].numel() == plan.n_slots * plan.rec
     assert scratch["band_off"].numel() == plan.n_bands + 1
@@ -69,46 +65,37 @@ def test_band_plan_covers_grid_once_within_shared_memory(case):
 def test_band_plan_matches_the_kernels_design_points():
     """4 rows of 1152 cells (36.9 KB) for K1 and 192-wide x-chunks of the
     576 x 576 x 10 grid with C = 4 (38.4 KB) for K1z."""
+    from lanemapping_tpu_torch.kernels import voxel_bin
     from lanemapping_tpu_torch.kernels.bin_bands import band_plan
 
     k1 = band_plan(*CASES["flagship_1152"])
     assert (k1.rows_per_band, k1.x_chunk, k1.smem_bytes) == (4, 1152, 36864)
     k1z = band_plan(*CASES["lidar_576x576x10"])
+    assert voxel_bin.record_floats(4) == k1z.rec == 4
     assert (k1z.rows_per_band, k1z.x_chunk, k1z.n_xchunks,
             k1z.smem_bytes) == (1, 192, 3, 38400)
     with pytest.raises(ValueError):
-        band_plan(1, 10, 4, 4, 20000, 4)  # one column beyond the card
+        band_plan(1, 10, 4, 4, 20000, 4, 4)  # one column beyond the card
+    with pytest.raises(ValueError):
+        band_plan(1, 10, 4, 4, 1, 4, 6)  # records are a power of two
 
 
 def simulate_passes(plan, row, col, sub, vals, valid):
-    """Passes (A)-(D) in numpy, CTA by CTA as the kernels run them: [B,N]
-    cells, [B,N,V] values, [B,N] valid -> (flat outputs [B*H*W*D*V] of
-    sum / max(count, 1), counts [B*H*W*D])."""
-    from lanemapping_tpu_torch.kernels.bin_bands import POINTS_PER_CTA
-
+    """Passes (A)-(D) in numpy: [B,N] cells, [B,N,V] values, [B,N] valid ->
+    (flat outputs [B*H*W*D*V] of sum / max(count, 1), counts [B*H*W*D]).
+    The kernels' order of records within a segment differs; the sums do
+    not depend on it."""
     B, N = valid.shape
-    V, rec, align = plan.n_vals, plan.rec, plan.align
+    V = plan.n_vals
     band, local = plan.locate(row, col, sub)
-    runs = {}  # (tile, CTA, band) -> the points of one CTA's run
-    for t in range(B):
-        for p in np.flatnonzero(valid[t]):
-            runs.setdefault((t, p // POINTS_PER_CTA, band[t, p]), []).append(p)
-    padded = {k: -(-len(v) // align) * align for k, v in runs.items()}
-    count = np.zeros(plan.n_bands, np.int64)                    # (A)
-    for (t, _, b), n in padded.items():
-        count[t * plan.bands_per_tile + b] += n
+    gband = np.arange(B)[:, None] * plan.bands_per_tile + band
+    count = np.bincount(gband[valid], minlength=plan.n_bands)  # (A)
     off = np.concatenate([[0], np.cumsum(count)])               # (B)
     assert off[-1] <= plan.n_slots
-    slots = np.full((plan.n_slots, rec), np.nan)                # (C)
-    cursor = off[:-1].copy()
-    for (t, c, b), pts in runs.items():
-        g = t * plan.bands_per_tile + b
-        s0, cursor[g] = cursor[g], cursor[g] + padded[t, c, b]
-        slots[s0:s0 + padded[t, c, b], V] = -1  # padding records
-        for r, p in enumerate(pts):
-            slots[s0 + r, :V] = vals[t, p]
-            slots[s0 + r, V] = local[t, p]
-    np.testing.assert_array_equal(cursor, off[1:])
+    order = np.argsort(np.where(valid, gband, plan.n_bands).ravel(),
+                       kind="stable")[:off[-1]]                # (C)
+    slot_local = local.ravel()[order]
+    slot_vals = vals.reshape(-1, V)[order]
     out = np.full(B * plan.height * plan.width * plan.depth * V, np.nan,
                   np.float32)
     cnt_out = np.full(B * plan.height * plan.width * plan.depth, np.nan,
@@ -117,14 +104,12 @@ def simulate_passes(plan, row, col, sub, vals, valid):
         tile, k = divmod(g, plan.bands_per_tile)
         r0, rows, x0, cols = plan.band_rect(k)
         cells = rows * cols * plan.depth
-        seg = slots[off[g]:off[g + 1]]
-        seg = seg[seg[:, V] >= 0]
-        idx = seg[:, V].astype(np.int64)
-        assert (idx < cells).all()
+        seg = slice(off[g], off[g + 1])
+        assert (slot_local[seg] < cells).all()
         s = np.zeros((cells, V), np.float64)
         c = np.zeros(cells, np.float64)
-        np.add.at(s, idx, seg[:, :V])
-        np.add.at(c, idx, 1)
+        np.add.at(s, slot_local[seg], slot_vals[seg])
+        np.add.at(c, slot_local[seg], 1)
         start = ((tile * plan.height + r0) * plan.width + x0) * plan.depth
         assert np.isnan(cnt_out[start:start + cells]).all()  # written once
         out[start * V:(start + cells) * V] = \
@@ -134,11 +119,11 @@ def simulate_passes(plan, row, col, sub, vals, valid):
     return out, cnt_out
 
 
-@pytest.mark.parametrize("grid,budget", [
-    ((96, 96, 4), 40 * 1024),   # whole-row bands
-    ((41, 12, 3), 2048),        # x-chunks of one row, ragged last chunk
+@pytest.mark.parametrize("grid", [
+    (96, 96, 4),   # whole-row bands
+    (251, 6, 10),  # a 50 KB row: x-chunks of one row, ragged last chunk
 ], ids=["rows", "xchunks"])
-def test_pass_model_on_plan_matches_plain_voxel_mean(grid, budget):
+def test_pass_model_on_plan_matches_plain_voxel_mean(grid):
     from lanemapping_tpu_torch.kernels.bin_bands import band_plan
     from lanemapping_tpu_torch.kernels.voxel_bin import (voxel_bin_mean_ref,
                                                          voxel_bin_sums_ref,
@@ -148,12 +133,12 @@ def test_pass_model_on_plan_matches_plain_voxel_mean(grid, budget):
     rng = np.random.RandomState(3)
     lo = np.asarray(PC_RANGE[:3], np.float32)
     hi = np.asarray(PC_RANGE[3:], np.float32)
-    n = 5000  # two CTAs of passes (A) and (C) per tile
+    n = 5000
     pts = np.concatenate([rng.uniform(lo - 1, hi + 1, (2, n, 3)),
                           rng.rand(2, n, 1)], -1).astype(np.float32)
     mask = rng.rand(2, n) > 0.2
-    plan = band_plan(2, n, Y, X, Z, 4, budget=budget)
-    if budget < 40 * 1024:
+    plan = band_plan(2, n, Y, X, Z, 4, 4)
+    if X > 96:
         assert plan.n_xchunks > 1 and X % plan.x_chunk != 0
     ijk, valid = voxel_cells(torch.tensor(pts), PC_RANGE, grid)
     valid = (valid & torch.tensor(mask)).numpy()
@@ -175,7 +160,7 @@ def test_pass_model_on_plan_matches_plain_bev_mean(flip_rows):
                                                        bin_geometry)
     from lanemapping_tpu_torch.kernels.bin_bands import band_plan
 
-    img = 64
+    img = 256
     rng = np.random.RandomState(4)
     lo, size = bin_geometry(PC_RANGE, img)
     pts = np.stack([rng.uniform(lo[0] - 1, lo[0] + size[0] * img + 1,
@@ -185,8 +170,8 @@ def test_pass_model_on_plan_matches_plain_bev_mean(flip_rows):
                     rng.normal(0, 1, (2, 5000)), rng.rand(2, 5000)],
                    -1).astype(np.float32)
     mask = rng.rand(2, 5000) > 0.2
-    plan = band_plan(2, 5000, img, img, budget=2048)  # several bands
-    assert plan.bands_per_tile > 1
+    plan = band_plan(2, 5000, img, img)
+    assert plan.bands_per_tile > 1 and img % plan.rows_per_band != 0
     q = (pts[..., :2] - lo) / size
     valid = mask & ((q >= 0) & (q < img)).all(-1)
     ij = np.where(valid[..., None], np.floor(q), 0).astype(np.int64)

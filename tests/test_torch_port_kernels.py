@@ -219,7 +219,38 @@ def test_voxel_bin_kernel_rejects_bad_inputs_on_card(cuda_device):
     pts, mask = pts.to(cuda_device), mask.to(cuda_device)
     bad = [(pts.double(), mask), (pts[:, ::2], mask[:, ::2]),
            (pts[..., :2].contiguous(), mask), (pts, mask.float()),
-           (pts, mask.cpu()), (pts[0], mask[0])]
+           (pts, mask.cpu()), (pts[0], mask[0]),
+           (torch.cat([pts, pts, pts[..., :1]], -1), mask)]  # C = 9 > 8
     for p, m in bad:
         with pytest.raises(ValueError):
             voxel_bin.voxel_bin_mean(p, m, PC_RANGE, grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bev_bin_mean", "voxel_bin_mean"])
+def test_binning_kernels_take_points_off_16_byte_alignment(cuda_device,
+                                                          kernel):
+    """Contiguous [B,N,4] points whose storage starts 4 bytes past a
+    16-byte boundary are read one float at a time, not as float4."""
+    from lanemapping_tpu_torch.kernels import bev_bin, voxel_bin
+
+    if kernel == "bev_bin_mean":
+        pts, mask = cloud(11, 2, 50000, 64, "piled")
+    else:
+        pts, mask = voxel_cloud(12, 2, 50000, (40, 36, 5))
+    buf = torch.empty(pts.numel() + 1, device=cuda_device)
+    off = buf[1:].view(pts.shape)
+    off.copy_(pts.to(cuda_device))
+    mask = mask.to(cuda_device)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    if kernel == "bev_bin_mean":
+        m, c = bev_bin.bev_bin_mean(off, mask, PC_RANGE, 64)
+        m_ref, c_ref = bev_bin.bev_bin_mean_ref(off, mask, PC_RANGE, 64)
+        torch.cuda.synchronize()
+        assert torch.equal(c, c_ref) and c.any()
+    else:
+        m = voxel_bin.voxel_bin_mean(off, mask, PC_RANGE, (40, 36, 5))
+        m_ref = voxel_bin.voxel_bin_mean_ref(off, mask, PC_RANGE, (40, 36, 5))
+        torch.cuda.synchronize()
+        assert m.any()
+    torch.testing.assert_close(m, m_ref, rtol=1e-5, atol=1e-5)
