@@ -53,14 +53,38 @@ or outside a checkout.  Phases, each of which fails the run:
 8. the port on the card against the port on the CPU at
    ``configs/tiny_test_lidar.py`` in float32 with TF32 off: the z-fold
    planes within 1e-5 with equal counts, every head map within rel-max
-   2e-3, the same lane records (columns to 1e-3 px).
+   2e-3, the same lane records (columns to 1e-3 px);
+9. flagship training at full width: ``Runner.train(max_iters=8)`` on the
+   flagship config (bf16, Adam + cosine, batch 8, seeded random weights)
+   over phase 7's dataset, whose 16 tiles all train (2 batches per pass);
+   every loss term finite at every step, no NaN-guard skip, the last
+   pass's loss below the first; s/step from CUDA events after the warm-up
+   step, train tiles/s, ``max_memory_allocated``, one more step under
+   ``torch.profiler`` (its top ops by device time), the forward + backward
+   ms of the fused seg focal and the full-resolution CE and endpoint
+   focal at the step's shapes; then ``epoch_1`` saved, a new Runner's
+   ``resume_latest`` bit-identical (parameters, buffers, optimizer,
+   scheduler, step, generator), and one ``validate`` on the valid split;
+10. the same for the LiDAR config (float32 on bf16-rounded weights, 2^19
+   points per cloud, 6 steps); K1z's launch count is zeroed before the
+   run and read after, and must be > 0, and the voxelized plane must
+   enter autograd as a leaf;
+11. three train steps of the port on the card against the port on the CPU
+   at both tiny configs in float32 with TF32 off, from the same weights,
+   seeded mid-training Adam state and batch (a tenth of the configs' lr,
+   as the CPU parity tests): every loss term within rel 1e-4 at every
+   step, every parameter and BatchNorm buffer within rel-max 2e-3.
 
-Before the last line it prints ``{"kernels": [...]}``; the last line is
+Phases 9 and 10 run with PyTorch's default precision flags (TF32
+convolutions on).  Before the last line it prints ``{"kernels": [...]}``
+(with each kernel's launches on the serving and the training path); the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -668,6 +692,356 @@ def phase_lidar_card_vs_cpu(root):
     check(n > 0, "tiny LiDAR comparison produced no lane records")
 
 
+TERMS = ("proposal_loss", "ext_loss2", "cls_loss2", "cls_mean_loss2",
+         "cls_smooth_loss2", "endp_loss", "orient_loss", "binary_seg_loss",
+         "offset_loss", "semantic_seg_loss")
+
+
+def torch_defaults():
+    """PyTorch's default precision flags (phases 5 and 8 turn TF32 off)."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = False
+
+
+def train_cfg(path, root, **over):
+    """A config with every split at ``root`` and top-level ``over``."""
+    from lanemapping_tpu_torch.config.config import Config
+    cfg = Config.fromfile(path)
+    for split in ("train", "val", "test"):
+        cfg.dataset[split]["data_root"] = root
+    for k, v in over.items():
+        cfg[k] = v
+    return cfg
+
+
+def train_records(log_dir):
+    with open(os.path.join(log_dir, "train.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def snapshot(state):
+    """A deep copy of a train state, as state dicts."""
+    return copy.deepcopy({
+        "model": state.model.state_dict(),
+        "optimizer": state.optimizer.state_dict(),
+        "scheduler": state.scheduler.state_dict(), "step": state.step,
+        "generator": state.generator.get_state()})
+
+
+def same_state(a, b):
+    """Whether two snapshots are bit-identical; the first difference."""
+    import torch
+    if a["step"] != b["step"]:
+        return False, "step"
+    if a["scheduler"] != b["scheduler"]:
+        return False, "scheduler"
+    if not torch.equal(a["generator"], b["generator"]):
+        return False, "generator"
+    for k, v in a["model"].items():
+        if not torch.equal(v, b["model"][k]):
+            return False, k
+    oa, ob = a["optimizer"], b["optimizer"]
+    if oa["param_groups"] != ob["param_groups"] or \
+            oa["state"].keys() != ob["state"].keys():
+        return False, "optimizer groups"
+    for i, st in oa["state"].items():
+        for k, v in st.items():
+            if not torch.equal(v, ob["state"][i][k]):
+                return False, f"optimizer state {i}.{k}"
+    return True, None
+
+
+def time_loss_parts(db, out_shapes, hp):
+    """Forward + backward ms of three loss parts at a train step's shapes
+    and dtypes, on the step's labels and seeded logits: the fused
+    per-proposal seg focal, the full-resolution semantic CE and the
+    full-resolution endpoint focal (``cuda_ms``)."""
+    import torch
+    from lanemapping_tpu_torch.models.head_losses import (
+        _fused_prop_seg_focal, _heatmap_f32)
+    from lanemapping_tpu_torch.ops.losses import (
+        cross_entropy_with_int_labels, sigmoid_focal_loss)
+    dev = db["prop_ext"].device
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = {k: torch.randn(s, generator=g, device=dev).to(dt)
+         .requires_grad_() for k, (s, dt) in out_shapes.items()}
+    W = hp["prop_fea_width"]
+    ext, coor = db["prop_ext"].float(), db["prop_coor"].float()
+    pos = torch.where((coor >= W) | (coor < 0) | (ext == 0), 0.0,
+                      ext).sum(2) > 2.0
+    lb = _heatmap_f32(db["endp_map"])
+    w = torch.where(lb > 1e-12, lb * 4.0, 0.5)
+    tgt = (lb > 1e-12).float()
+
+    def seg():
+        _fused_prop_seg_focal(x["prop_seg_small"], db["prop_inst"],
+                              db["prop_best"], pos, hp).backward()
+
+    def ce():
+        cross_entropy_with_int_labels(
+            x["semantic_seg"], db["semantic_label_raw"].long()
+        ).sum().backward()
+
+    def endp():
+        (w * sigmoid_focal_loss(x["endp_est"][..., 0].float(), tgt)
+         ).sum().backward()
+
+    return {k: cuda_ms(f, iters=5, warmup=1)["ms"]
+            for k, f in (("seg_focal", seg), ("semantic_ce", ce),
+                         ("endp_focal", endp))}
+
+
+def profile_step(runner, db, top=12):
+    """One train step under ``torch.profiler``: the step's device ms (the
+    sum over its kernels), the ops with the most device time of their own
+    (ms, calls), and the share of the convolutions (forward and
+    backward)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        runner.train_step(runner.state, db)
+        torch.cuda.synchronize()
+    ops, device_ms = [], 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if ev.device_type == DeviceType.CUDA:
+            device_ms += us / 1e3  # a kernel
+        elif us > 0:
+            ops.append((us / 1e3, ev.key[:60], ev.count))  # an op
+    ops.sort(reverse=True)
+    conv_ms = sum(ms for ms, k, _ in ops if "convolution" in k)
+    return ops[:top], device_ms, conv_ms
+
+
+def phase_train(name, config, root, log_dir, n_steps, lidar):
+    """``Runner.train`` at full width on the card (phases 9 and 10), then
+    its numbers, a profiled step, a checkpoint resume and a validate
+    pass.  Returns the launch counts of the training run."""
+    import torch
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    from lanemapping_tpu_torch.engine.checkpoint import save_model
+    from lanemapping_tpu_torch.engine.runner import Runner
+    from lanemapping_tpu_torch.models.head_losses import head_hparams
+
+    torch_defaults()
+    # log every step; no validate or save inside the timed run; the
+    # proposal-GT cache makes passes after the first load from disk
+    cfg = train_cfg(config, root, log_every=1, eval_ep=10 ** 6,
+                    save_ep=10 ** 6, gt_cache=True, workers=8)
+    runner = Runner(cfg, log_dir=log_dir)
+    check(runner.device.type == "cuda", f"{name}: runner on {runner.device}")
+    step, times = runner.train_step, []
+
+    def timed_step(state, batch):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        stats = step(state, batch)  # reads the loss on the host
+        b.record()
+        times.append((a, b, time.perf_counter() - t0))
+        return stats
+
+    if lidar:
+        seen = {}
+        runner.model.pcencoder.zfold_encoder.register_forward_pre_hook(
+            lambda mod, inp: seen.update(vox=(inp[0].grad_fn,
+                                              inp[0].requires_grad)))
+    runner.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    runner.train(max_iters=n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    runner.train_step = step
+    if lidar:
+        check(seen["vox"] == (None, False),
+              f"{name}: the voxelized plane is not an autograd leaf")
+        check(launches["voxel_bin_mean"] > 0,
+              f"{name}: the training path never launched K1z")
+
+    recs = train_records(log_dir)
+    check(len(recs) == n_steps, f"{name}: {len(recs)} steps logged")
+    for r in recs:
+        bad = [k for k in TERMS + ("loss",) if not math.isfinite(r[k])]
+        check(not bad, f"{name}: non-finite {bad} at step {r['iter']}")
+        check(r["skipped_nan"] == 0.0, f"{name}: NaN guard fired")
+    per_epoch = {}
+    for r in recs:
+        per_epoch.setdefault(r["epoch"], []).append(r["loss"])
+    first, last = (sum(v) / len(v) for v in (per_epoch[min(per_epoch)],
+                                             per_epoch[max(per_epoch)]))
+    check(len(per_epoch) > 1 and last < first,
+          f"{name}: loss of the last pass {last} not below the first "
+          f"{first}")
+    step_ms = [a.elapsed_time(b) for a, b, _ in times]
+    host_s = [h for _, _, h in times]
+    s_step = sum(step_ms[1:]) / len(step_ms[1:]) / 1e3
+    median = sorted(step_ms[1:])[len(step_ms[1:]) // 2] / 1e3
+    B = cfg.batch_size
+    log(f"{name}: {n_steps} steps of batch {B} via Runner.train in "
+        f"{wall:.3f} s ({n_steps * B / wall:.4f} tiles/s with loading); "
+        f"per step (CUDA events) ms {[round(t, 4) for t in step_ms]}, host "
+        f"s {[round(h, 4) for h in host_s]}; after the warm-up step "
+        f"{s_step:.5f} s/step (median {median:.5f}), {B / s_step:.4f} "
+        f"tiles/s; peak "
+        f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; launches "
+        f"{launches}")
+    log(f"{name}: losses per step {[round(r['loss'], 5) for r in recs]}; "
+        f"first pass {first:.5f}, last pass {last:.5f}")
+    log(f"{name}: terms of the last step " + ", ".join(
+        f"{k} {recs[-1][k]:.5f}" for k in TERMS))
+
+    # one more step under the profiler, and the loss parts at its shapes
+    batch = next(iter(build_dataloader(cfg.dataset.train, cfg)))
+    db = runner._device_batch(batch)
+    rows, total_ms, conv_ms = profile_step(runner, db)
+    log(f"{name}: profiled step, device ms {total_ms:.3f} (kernels), "
+        f"convolutions {conv_ms:.3f} ms ({conv_ms / total_ms:.1%}); top ops "
+        f"by own device time: " + "; ".join(
+            f"{k} {ms:.3f} ms ({ms / total_ms:.1%}, x{n})"
+            for ms, k, n in rows))
+    S, P = cfg.heads.row_size, cfg.heads.num_prop
+    W = cfg.heads.prop_width + 2 * cfg.heads.prop_half_buff
+    cdt = torch.bfloat16 if cfg.get("train_compute_dtype") == "bfloat16" \
+        and not lidar else torch.float32
+    img = 8 * S
+    parts = time_loss_parts(db, {
+        "prop_seg_small": ((B, P, 2 * S, 2 * W), cdt),
+        "semantic_seg": ((B, img, img, 3), cdt),
+        "endp_est": ((B, img, img, 1), cdt)}, head_hparams(cfg))
+    log(f"{name}: loss parts forward+backward (CUDA events, ms; share of "
+        f"the {s_step * 1e3:.3f} ms step): " + ", ".join(
+            f"{k} {ms:.4f} ({ms / (s_step * 1e3):.1%})"
+            for k, ms in parts.items()))
+
+    # checkpoint, a new Runner, resume: bit-identical
+    save_model(log_dir, runner.state, "epoch_1")
+    saved = snapshot(runner.state)
+    fresh = Runner(cfg, log_dir=log_dir)
+    check(fresh.resume_latest(), f"{name}: resume_latest found nothing")
+    ok, where = same_state(snapshot(fresh.state), saved)
+    check(ok, f"{name}: resumed state differs at {where}")
+    log(f"{name}: epoch_1 saved and resumed bit-identical (step "
+        f"{fresh.state.step}, lr "
+        f"{fresh.state.optimizer.param_groups[0]['lr']:.6e})")
+    del fresh
+
+    t0 = time.perf_counter()
+    metrics = runner.validate()
+    log(f"{name}: validate on the valid split in "
+        f"{time.perf_counter() - t0:.3f} s: {metrics}")
+    return {"launches": launches, "s_per_step": s_step,
+            "tiles_per_s": B / s_step, "peak_bytes": peak,
+            "loss_parts_ms": parts}
+
+
+def seed_adam(state, grads, seed, count=10):
+    """Set a train state's Adam to a seeded mid-training state at update
+    ``count``: per parameter, with s the RMS of its gradient in ``grads``
+    floored at 1e-3 of the largest, bias-corrected moments v ~ s^2 U(0.5,
+    2) and m ~ N(0, (0.3 s)^2) (as `tests/torch_port_helpers.py::
+    mid_training_adam`), the same numbers whatever the device."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    rms = [float(g.double().pow(2).mean().sqrt()) if g is not None else 0.0
+           for g in grads]
+    floor = 1e-3 * max(rms)
+    c1, c2 = 1.0 - 0.9 ** count, 1.0 - 0.999 ** count
+    for p, r in zip(state.model.parameters(), rms):
+        s = max(r, floor)
+        st = state.optimizer.state[p]
+        st["step"] = torch.tensor(float(count))
+        st["exp_avg"] = torch.from_numpy(
+            (rng.normal(0.0, 0.3 * s, p.shape) * c1).astype("float32")
+        ).to(p.device)
+        st["exp_avg_sq"] = torch.from_numpy(
+            (s * s * rng.uniform(0.5, 2.0, p.shape) * c2).astype("float32")
+        ).to(p.device)
+    sched = state.scheduler
+    sched.last_epoch = count
+    lrs = [b * f(count) for b, f in zip(sched.base_lrs, sched.lr_lambdas)]
+    for group, lr in zip(state.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    sched._last_lr = lrs
+
+
+def phase_train_card_vs_cpu(root, log_dir):
+    """Three train steps of the port on the card against the port on the
+    CPU at both tiny configs, float32, TF32 off, from the same weights,
+    Adam state and batch (phase 11)."""
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    from lanemapping_tpu_torch.data.synthetic import generate_dataset
+    from lanemapping_tpu_torch.engine.runner import Runner
+    from lanemapping_tpu_torch.engine.state import model_input
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    generate_dataset(root, n_tiles=4, img=192, seed=3, with_points=True,
+                     points_per_tile=4096)
+    for config in (TINY, TINY_LIDAR):
+        name = os.path.basename(config)
+        # a tenth of the config's lr, as the CPU parity tests take it: the
+        # float32 gradient of the image encoder is ill-conditioned at
+        # random weights, and larger steps part any two float32 runs
+        cfg = train_cfg(config, root)
+        cfg.optimizer.lr = cfg.optimizer.lr / 10
+        cfg.scheduler.T_max = 1000
+        batch = next(iter(build_dataloader(cfg.dataset.train, cfg)))
+        runners = {d: Runner(cfg, log_dir=os.path.join(log_dir, d, name),
+                             device=d) for d in ("cpu", "cuda")}
+        probe = copy.deepcopy(runners["cpu"].model).train()
+        db = runners["cpu"]._device_batch(batch)
+        loss = runners["cpu"]._loss_fn(
+            probe(model_input(db, bool(cfg.get("use_lidar")))), db)["loss"]
+        grads = torch.autograd.grad(loss, list(probe.parameters()),
+                                    allow_unused=True)
+        stats = {}
+        for d, r in runners.items():
+            seed_adam(r.state, grads, seed=1)
+            stats[d] = [r.train_step(r.state, r._device_batch(batch))
+                        for _ in range(3)]
+        worst_loss = 0.0
+        for i, (sc, sg) in enumerate(zip(stats["cpu"], stats["cuda"])):
+            for k in TERMS + ("loss",):
+                c, g = float(sc[k]), float(sg[k])
+                err = abs(g - c) / max(abs(c), 1e-12) if c or g else 0.0
+                check(err < 1e-4, f"tiny {name} step {i} {k}: card {g} cpu "
+                      f"{c} (rel {err:.3e})")
+                worst_loss = max(worst_loss, err)
+        sd_c = runners["cpu"].model.state_dict()
+        sd_g = runners["cuda"].model.state_dict()
+        worst = (-1.0, "")
+        for k, c in sd_c.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            c = c.float().numpy()
+            g = sd_g[k].float().cpu().numpy()
+            err = float(np.abs(g - c).max() / max(1e-3, np.abs(c).max()))
+            worst = max(worst, (err, k))
+        check(worst[0] < 2e-3, f"tiny {name}: {worst[1]} rel-max "
+              f"{worst[0]:.3e} >= 2e-3 after 3 steps")
+        log(f"tiny {name} training card vs cpu: losses per step cpu "
+            f"{[round(float(s['loss']), 6) for s in stats['cpu']]} card "
+            f"{[round(float(s['loss']), 6) for s in stats['cuda']]}, worst "
+            f"term rel {worst_loss:.3e}; parameters and BatchNorm buffers "
+            f"worst rel-max {worst[0]:.3e} ({worst[1]})")
+
+
 def main():
     if not (os.path.isdir(os.path.join(HERE, "lanemapping_tpu_torch", "csrc"))
             and all(os.path.isfile(c) for c in (FLAGSHIP, TINY, LIDAR,
@@ -699,15 +1073,32 @@ def main():
 
         lidar_root = os.path.join(tmp, "lidar")
         t0 = time.perf_counter()
+        # every tile trains (2 batches of 8 per pass); the first 8 validate
+        names = [f"{190000 + i:06d}_{i:04d}" for i in range(N_CLOUDS)]
         stems = generate_dataset(lidar_root, n_tiles=N_CLOUDS, img=IMG,
                                  seed=7, with_points=True,
-                                 points_per_tile=N_POINTS)
+                                 points_per_tile=N_POINTS, splits={
+                                     "train": names, "valid": names[:B],
+                                     "test": names[B:], "single": names[:1],
+                                     "pretrain": names})
+        check(stems == names, "the dataset's tile names changed")
         log(f"wrote a LaserLane dataset of {N_CLOUDS} tiles with clouds of "
             f"{N_POINTS} points in {time.perf_counter() - t0:.3f} s")
         k1z = phase_k1z(lidar_root, stems, DEFAULT_PC_RANGE)
         k1z["launches"], _ = phase_lidar_slice(
             lidar_root, stems, os.path.join(tmp, "out_lidar"))
         phase_lidar_card_vs_cpu(os.path.join(tmp, "tiny_lidar"))
+
+        train = phase_train("flagship training", FLAGSHIP, lidar_root,
+                            os.path.join(tmp, "train_flagship"),
+                            n_steps=8, lidar=False)
+        k1["launches_train"] = train["launches"]["bev_bin_mean"]
+        train = phase_train("lidar training", LIDAR, lidar_root,
+                            os.path.join(tmp, "train_lidar"), n_steps=6,
+                            lidar=True)
+        k1z["launches_train"] = train["launches"]["voxel_bin_mean"]
+        phase_train_card_vs_cpu(os.path.join(tmp, "tiny_train"),
+                                os.path.join(tmp, "train_tiny"))
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

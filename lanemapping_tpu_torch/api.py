@@ -4,14 +4,20 @@
     mapper = lmt.LaneMapper("configs/Proj_polyline_fpn_vit_vertex_2.py",
                             ckpt="model.pth")          # runs on the card
     lanes = mapper.map_tiles(["tile1.png", "tile2.png"])
+    mapper.map_directory("data/TestArea1", out_dir="out")   # lane JSONs
+    metrics = mapper.evaluate("data/TestArea1", split="test")
 
 The mapper runs on ``device="cuda"`` unless the caller asks for the CPU; it
 raises when CUDA is asked for and there is no card, rather than carrying on
-elsewhere.
+elsewhere.  It holds a ``Runner`` (`engine/runner.py`), whose model it
+serves; ``ckpt`` is a torch ``state_dict`` / reference ``.pth`` file or a
+Runner checkpoint directory (``<log_dir>/ckpt/<tag>``).
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -63,17 +69,23 @@ def to_numpy(dec: Dict) -> Dict[str, np.ndarray]:
 
 class LaneMapper:
     def __init__(self, config, ckpt: Optional[str] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 log_dir: Optional[str] = None):
         from .config.config import Config
-        from .models.nets import build_model
+        from .engine.checkpoint import load_model
+        from .engine.runner import Runner
 
         self.device = resolve_device(device)
         self.cfg = Config.fromfile(config) if isinstance(config, str) \
             else config
-        model = build_model(self.cfg, seed=self.cfg.get("seed", 0))
-        if ckpt:
-            load_checkpoint(model, ckpt)
-        self.model = model.to(self.device)
+        self.runner = Runner(self.cfg, device=self.device, log_dir=log_dir
+                             or os.path.join(tempfile.gettempdir(),
+                                             "lanemapper"))
+        if ckpt and os.path.isdir(ckpt):
+            load_model(ckpt, self.runner.state)
+        elif ckpt:
+            load_checkpoint(self.runner.model, ckpt)
+        self.model = self.runner.model.eval()
 
     # -- tiles -> decoded polylines -----------------------------------------
     def map_arrays(self, tiles: np.ndarray) -> List[Dict]:
@@ -100,3 +112,37 @@ class LaneMapper:
                 img = np.stack([img] * 3, -1)
             tiles.append(img[..., :3].astype(np.float32) / 255.0)
         return self.map_arrays(np.stack(tiles))
+
+    # -- full directory pipeline --------------------------------------------
+    def map_directory(self, data_root: str, out_dir: str,
+                      split: str = "all", params_dir: Optional[str] = None,
+                      max_batches: Optional[int] = None) -> str:
+        """Dataset dir -> one lane JSON per tile under
+        ``<out_dir>/lanes_2d``, which it returns.  The 3-D lift of a
+        transform-params dir waits for `tools/img2pc.py` and
+        `tools/merge_lines.py`."""
+        from .data.loader import build_dataloader
+
+        if params_dir:
+            raise NotImplementedError(
+                "the 3-D lift (params_dir) is not ported to "
+                "lanemapping_tpu_torch yet")
+        ds_cfg = dict(self.cfg.dataset.test)
+        ds_cfg["data_root"] = data_root
+        ds_cfg["mode"] = split
+        loader = build_dataloader(ds_cfg, self.cfg, is_train=False)
+        lanes_dir = os.path.join(out_dir, "lanes_2d")
+        self.runner.infer_and_export(loader, lanes_dir,
+                                     max_batches=max_batches)
+        return lanes_dir
+
+    def evaluate(self, data_root: str, split: str = "test",
+                 max_batches: Optional[int] = None) -> Dict:
+        """The Runner's validation metrics on a labelled split."""
+        from .data.loader import build_dataloader
+
+        ds_cfg = dict(self.cfg.dataset[split if split in self.cfg.dataset
+                                       else "test"])
+        ds_cfg["data_root"] = data_root
+        loader = build_dataloader(ds_cfg, self.cfg, is_train=False)
+        return self.runner.validate(loader=loader, max_batches=max_batches)

@@ -1,10 +1,13 @@
-"""Batched, prefetching data loader (a copy of the ``Loader`` of
+"""Batched, prefetching data loader (a copy of
 `lanemapping_tpu/data/loader.py`).
 
 Numpy samples are assembled into batches on a thread pool and prefetched
-ahead of the device step, so host-side LAS parsing overlaps device compute.
-The multi-process rank slicing is kept as in the JAX package; the port runs
-one process on one card.
+ahead of the device step, so host-side LAS parsing and proposal-GT builds
+overlap device compute.  The multi-process rank slicing is kept as in the
+JAX package; the port runs one process on one card, and
+``build_dataloader`` builds that single-process loader.  Shuffling is keyed
+by seed + epoch as in the JAX package, so for one seed both packages see
+the same batches in the same order.
 """
 
 from __future__ import annotations
@@ -127,3 +130,18 @@ class Loader:
                 yield item
         finally:
             stop.set()
+
+
+def build_dataloader(split_cfg, cfg, is_train: bool = True) -> Loader:
+    """Factory mirroring the reference `build_dataloader`
+    (`datasets/registry.py:33-62`), for one process."""
+    from ..registry import build_dataset
+
+    return Loader(
+        build_dataset(split_cfg, cfg),
+        batch_size=cfg.batch_size,
+        shuffle=is_train,
+        drop_last=is_train,
+        seed=cfg.get("seed", 0),
+        num_threads=min(8, max(1, cfg.get("workers", 4))),
+    )

@@ -1,0 +1,80 @@
+"""Checkpoint save/load (port of `lanemapping_tpu/engine/checkpoint.py`).
+
+``save_model`` writes ``<log_dir>/ckpt/<tag>/state.pt`` with
+``torch.save``: the model's ``state_dict``, the optimizer's and the
+scheduler's, the step and the dropout generator's state.  ``load_model``
+restores all of it (a full resume, as the JAX package does; the reference
+restores weights only).  ``load_network_filtered`` is the finetune load: it
+keeps the entries whose shapes match the model (reference
+`net_utils.py:23-33`), from such a checkpoint or from a plain torch
+``state_dict`` / reference ``.pth``.  Orbax checkpoints of the JAX package
+would need JAX; their weights cross through `tools/from_jax.py`.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import torch
+
+from .state import TrainState
+
+STATE_FILE = "state.pt"
+
+
+def _ckpt_dir(log_dir: str) -> str:
+    d = os.path.join(os.path.abspath(log_dir), "ckpt")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def save_model(log_dir: str, state: TrainState, tag: str) -> str:
+    path = os.path.join(_ckpt_dir(log_dir), tag)
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, STATE_FILE + ".tmp")
+    torch.save({"model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "scheduler": state.scheduler.state_dict(),
+                "step": state.step,
+                "generator": state.generator.get_state()}, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    return path
+
+
+def _read(path: str) -> Dict:
+    if os.path.isdir(path):
+        path = os.path.join(path, STATE_FILE)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_model(path: str, state: TrainState) -> TrainState:
+    """Restore a ``save_model`` checkpoint (its directory) into ``state``,
+    in place."""
+    ckpt = _read(path)
+    state.model.load_state_dict(ckpt["model"])
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.scheduler.load_state_dict(ckpt["scheduler"])
+    state.step = int(ckpt["step"])
+    state.generator.set_state(ckpt["generator"])
+    return state
+
+
+def load_network_filtered(path: str, state: TrainState) -> TrainState:
+    """Finetune load into ``state.model``: the weights of a checkpoint
+    directory, a ``state.pt`` or a torch ``state_dict`` file (``net`` /
+    ``state_dict`` / ``model`` containers and ``module.`` prefixes
+    accepted) whose shapes match; the rest keep their values."""
+    ckpt = _read(path)
+    for key in ("model", "net", "state_dict"):
+        if isinstance(ckpt.get(key), dict):
+            ckpt = ckpt[key]
+            break
+    own = state.model.state_dict()
+    keep = {}
+    for k, v in ckpt.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if k in own and tuple(own[k].shape) == tuple(v.shape):
+            keep[k] = v
+    state.model.load_state_dict(keep, strict=False)
+    return state

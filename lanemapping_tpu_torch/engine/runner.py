@@ -1,0 +1,345 @@
+"""Training, validation and inference for the Runner (port of
+`lanemapping_tpu/engine/runner.py`; reference `engine/runner.py:67-868`).
+
+Seeds, model build, optimizer with its per-iteration schedule,
+NaN-guarded updates (`engine/state.py`), periodic validation with the
+composite best-model metric ``0.9*coor_F1 + 0.1*endp_F1`` (reference
+`runner.py:344`), JSONL logging (``<log_dir>/<tag>.jsonl``) and
+checkpoints (`engine/checkpoint.py`), on one device: ``cuda`` unless the
+caller asks for the CPU.
+
+Batches go up as the JAX package ships them (``_device_batch``): small
+integer labels in their narrowest dtype, the PNG-sourced ``proj`` and
+``endp_map`` re-quantised to their uint8 (exact; /255 on the device), a
+mono tile as one channel, bf16 ``endp_map`` under bf16 training where the
+u8 round trip does not apply (the LiDAR path), the LiDAR points as they
+are.  On a card the host tensors are pinned and copied ``non_blocking``.
+
+Only the ColumnProposal2 head trains here; the Segmentor, RowSharNotReducRef
+and GridSeg branches wait for their models.  TensorBoard is left out (the
+JAX package skips it when it is absent).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from ..api import resolve_device
+from ..data.loader import build_dataloader
+from ..models.head_losses import column_proposal_loss, head_hparams
+from ..models.nets import build_model
+from .checkpoint import load_model, load_network_filtered, save_model
+from .state import create_train_state, is_mono_batch, make_train_step
+
+TRAIN_BATCH_KEYS = ("proj", "prop_ext", "prop_coor", "prop_offset",
+                    "prop_offset_mask", "prop_bi_seg", "prop_inst",
+                    "prop_best", "lc_orient",
+                    "semantic_label_raw", "endp_map", "mask", "label",
+                    "points", "points_mask")
+
+
+class Runner:
+    # label arrays with small integer ranges ship in the narrowest dtype
+    # (the losses upcast on the device)
+    _INT_SHIP = {"prop_bi_seg": np.uint8, "prop_inst": np.uint8,
+                 "prop_best": np.uint8, "semantic_label_raw": np.uint8,
+                 "mask": np.uint8, "lc_orient": np.uint8,
+                 "prop_ext": np.uint8, "prop_offset_mask": np.uint8,
+                 "label": np.int16}
+    _BF16_SHIP = ("proj", "endp_map")  # only under bf16 training
+    # PNG-sourced arrays re-quantise to their uint8 exactly when no float
+    # augmentation ran
+    _U8_ROUNDTRIP = ("proj", "endp_map")
+
+    def __init__(self, cfg, log_dir: Optional[str] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        seed = cfg.get("seed", 0)
+        random.seed(seed)
+        np.random.seed(seed)
+        torch.manual_seed(seed)
+
+        self.log_dir = log_dir or cfg.get("log_dir", "./logs")
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.use_lidar = bool(cfg.get("use_lidar", False))
+
+        head_type = cfg.heads.type if "heads" in cfg else None
+        if cfg.net.type != "Detector1stage" or head_type != "ColumnProposal2":
+            raise NotImplementedError(
+                f"training {cfg.net.type}/{head_type} is not ported to "
+                f"lanemapping_tpu_torch yet")
+        model = build_model(cfg, seed=seed).to(self.device)
+        if self.device.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        self.model = model
+        self.state = create_train_state(model, cfg)
+
+        hp = head_hparams(cfg)
+        self._loss_fn = lambda out, batch: column_proposal_loss(out, batch,
+                                                                hp)
+        self.compute_dtype = torch.bfloat16 \
+            if cfg.get("train_compute_dtype") == "bfloat16" else None
+        self.train_step = make_train_step(self._loss_fn, self.compute_dtype,
+                                          self.use_lidar)
+        self.best_metric = -1.0
+
+        if cfg.get("load_from"):
+            load_model(cfg.load_from, self.state)
+        elif cfg.get("finetune_from"):
+            load_network_filtered(cfg.finetune_from, self.state)
+
+    def resume_latest(self) -> bool:
+        """Crash recovery: restore the newest checkpoint under
+        ``<log_dir>/ckpt`` (an ``epoch_N`` before ``best``), optimizer,
+        scheduler, step and generator included.  True if one was found."""
+        ckpt_dir = os.path.join(self.log_dir, "ckpt")
+        if not os.path.isdir(ckpt_dir):
+            return False
+        tags = [d for d in os.listdir(ckpt_dir)
+                if os.path.isdir(os.path.join(ckpt_dir, d))]
+        if not tags:
+            return False
+
+        def key(t):
+            return (1, int(t.split("_")[1])) if t.startswith("epoch_") \
+                else (0, 0)
+        tag = sorted(tags, key=key)[-1]
+        load_model(os.path.join(ckpt_dir, tag), self.state)
+        return True
+
+    # -- logging -----------------------------------------------------------
+    def _log(self, tag: str, record: Dict):
+        record = {k: (float(v) if isinstance(v, (torch.Tensor, np.ndarray,
+                                                 np.floating)) else v)
+                  for k, v in record.items()}
+        with open(os.path.join(self.log_dir, f"{tag}.jsonl"), "a") as f:
+            f.write(json.dumps(record) + "\n")
+
+    # -- batches -------------------------------------------------------------
+    def _mono_squeeze(self, v: np.ndarray) -> bool:
+        """Whether to ship this uint8 image batch as one channel
+        (``cfg.dataset_mono_bev`` pins it; unset, the content decides)."""
+        if v.ndim != 4 or v.shape[-1] != 3:
+            return False
+        flag = self.cfg.get("dataset_mono_bev")
+        if flag is not None:
+            return bool(flag)
+        return is_mono_batch(v)
+
+    def _upload(self, v) -> torch.Tensor:
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        db = {}
+        bf16 = self.cfg.get("train_compute_dtype") == "bfloat16"
+        u8_ok = not self.cfg.get("dataset_color_augment", False) \
+            and not self.use_lidar
+        for k, v in batch.items():
+            if k not in TRAIN_BATCH_KEYS or isinstance(v, list):
+                continue
+            if self.use_lidar and k == "proj":
+                continue  # raw-point training never reads the BEV image
+            if k in self._INT_SHIP:
+                v = np.asarray(v).astype(self._INT_SHIP[k], copy=False)
+            elif u8_ok and k in self._U8_ROUNDTRIP:
+                v = np.rint(np.asarray(v, np.float32) * 255.0).astype(
+                    np.uint8)
+                if k == "proj" and self._mono_squeeze(v):
+                    v = v[..., :1]
+            elif bf16 and k in self._BF16_SHIP:
+                v = torch.from_numpy(np.ascontiguousarray(
+                    v, np.float32)).to(torch.bfloat16)
+            db[k] = self._upload(v)
+        return db
+
+    def _eval_input(self, batch: Dict):
+        """Forward input for eval and inference: the LiDAR points dict, or
+        the tile shipped as uint8 (one channel when mono) and divided by
+        255 in float32 on the device."""
+        if self.use_lidar:
+            return {"points": self._upload(np.asarray(batch["points"],
+                                                      np.float32)),
+                    "points_mask": self._upload(np.asarray(
+                        batch["points_mask"], bool))}
+        proj = np.asarray(batch["proj"], np.float32)
+        if self.cfg.get("dataset_color_augment", False):
+            return self._upload(proj)
+        v = np.rint(proj * 255.0).astype(np.uint8)
+        if self._mono_squeeze(v):
+            v = v[..., :1]
+        x = self._upload(v).float() / 255.0
+        return x.expand(*x.shape[:-1], 3).contiguous()
+
+    def _eval_decode(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """Forward + lane decode of one batch, in eval mode, float32; the
+        decode keys the host postprocess reads, still on the device."""
+        from ..decode.lane_decode import decode_lanes, host_decode_view
+
+        self.model.eval()
+        with torch.inference_mode():
+            return host_decode_view(decode_lanes(
+                self.model(self._eval_input(batch)), self.cfg))
+
+    # -- loops --------------------------------------------------------------
+    def train(self, max_iters: Optional[int] = None):
+        cfg = self.cfg
+        log_every = int(cfg.get("log_every", 10))
+        loader = build_dataloader(cfg.dataset.train, cfg, is_train=True)
+        it_count = 0
+        for epoch in range(cfg.epochs):
+            for batch in loader:
+                stats = self.train_step(self.state, self._device_batch(batch))
+                if it_count % log_every == 0:
+                    self._log("train", {"epoch": epoch, "iter": it_count,
+                                        **stats})
+                it_count += 1
+                if max_iters is not None and it_count >= max_iters:
+                    return
+            if (epoch + 1) % cfg.get("eval_ep", 1) == 0:
+                self.validate(epoch)
+            if (epoch + 1) % cfg.get("save_ep", 5) == 0:
+                save_model(self.log_dir, self.state, f"epoch_{epoch + 1}")
+
+    def validate(self, epoch: int = 0, max_batches: Optional[int] = None,
+                 loader=None) -> Dict:
+        cfg = self.cfg
+        if loader is None:
+            split = cfg.dataset.get("val") or cfg.dataset.test
+            loader = build_dataloader(split, cfg, is_train=False)
+        metrics = self._validate_lanes(loader, max_batches)
+        metric = metrics["composite"]
+        self._log("val", {"epoch": epoch, **metrics})
+        if metric > self.best_metric:
+            self.best_metric = metric
+            save_model(self.log_dir, self.state, "best")
+        return metrics
+
+    def _validate_lanes(self, loader, max_batches) -> Dict:
+        """Lane-coordinate validation (reference `runner.py:223-353`),
+        pipelined: the forward and decode of batch i+1 run on the device
+        while worker threads run the host postprocess (readback, tracker,
+        NMS, metrics) of batch i.  Workers return per-batch results; the
+        sums stay on this thread."""
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ..decode.postprocess import lane_maps_from_decode
+        from ..utils.metrics import (cal_coor_measures,
+                                     eval_metric_endp_detector,
+                                     eval_metric_line_segmentor,
+                                     prf_from_counts)
+        cfg = self.cfg
+        buff = cfg.get("validate_buffer", 10)
+        img_size = cfg.list_img_size_xy[0]
+
+        def score(dec_dev, batch):
+            dec = {k: v.cpu().numpy() for k, v in dec_dev.items()}
+            maps = lane_maps_from_decode(dec, cfg)
+            coor, endp = [], []
+            sem = None
+            for b in range(len(batch["lc_coor_raw"])):
+                m = cal_coor_measures(batch["lc_coor_raw"][b],
+                                      maps["cls_offset_smooth"][b][:, :, 0],
+                                      buffer_px=buff, img_size=img_size)
+                coor.append(m["f1"])
+                e = eval_metric_endp_detector(
+                    np.argwhere(maps["endp_by_cls"][b] > 0),
+                    batch["endp_map"][b], r_thre=2 * buff)
+                endp.append((e["f1"], e["acc"], e["recall"]))
+                if "mask" in batch:
+                    # per-class semantic F1 on the re-rendered lane map,
+                    # counts pooled across classes and tiles (reference
+                    # `metric_utils.py:443-481`, `runner.py:779-787`)
+                    m = eval_metric_line_segmentor(
+                        maps["semantic_line"][b], batch["mask"][b],
+                        bi_seg=False, semantics=2, buffer_px=buff)
+                    if sem is None:
+                        sem = {k: 0 for k in ("tp", "n_pred", "dg", "n_gt")}
+                    for k in sem:
+                        sem[k] += m[k]
+            return coor, endp, sem
+
+        # overlap only pays with spare cores to run the pool on
+        default_workers = 4 if (os.cpu_count() or 1) > 2 else 0
+        n_workers = int(cfg.get("validate_workers", default_workers))
+        results = []
+        if n_workers == 0:
+            for i, batch in enumerate(loader):
+                if max_batches is not None and i >= max_batches:
+                    break
+                results.append(score(self._eval_decode(batch), batch))
+        else:
+            # backpressure: each pending future pins its batch in host RAM
+            futs = deque()
+            with ThreadPoolExecutor(n_workers) as pool:
+                for i, batch in enumerate(loader):
+                    if max_batches is not None and i >= max_batches:
+                        break
+                    futs.append(pool.submit(score, self._eval_decode(batch),
+                                            batch))
+                    while len(futs) >= 2 * n_workers:
+                        results.append(futs.popleft().result())
+                results.extend(f.result() for f in futs)
+        coor_f1s = [v for r in results for v in r[0]]
+        endp_f1s = [v[0] for r in results for v in r[1]]
+        endp_accs = [v[1] for r in results for v in r[1]]
+        endp_recs = [v[2] for r in results for v in r[1]]
+        sem_counts = {k: 0 for k in ("tp", "n_pred", "dg", "n_gt")}
+        saw_mask = False
+        for r in results:
+            if r[2] is not None:
+                saw_mask = True
+                for k in sem_counts:
+                    sem_counts[k] += r[2][k]
+        coor = float(np.mean(coor_f1s)) if coor_f1s else 0.0
+        endp = float(np.mean(endp_f1s)) if endp_f1s else 0.0
+        metrics = {"coor_f1": coor, "endp_f1": endp,
+                   "endp_acc": float(np.mean(endp_accs)) if endp_accs
+                   else 0.0,
+                   "endp_recall": float(np.mean(endp_recs)) if endp_recs
+                   else 0.0,
+                   "composite": 0.9 * coor + 0.1 * endp}
+        if saw_mask:
+            acc, rec, f1 = prf_from_counts(**sem_counts)
+            metrics["semantic_f1"] = f1
+            metrics["semantic_acc"] = acc
+            metrics["semantic_recall"] = rec
+        return metrics
+
+    def infer_and_export(self, loader, out_dir: str,
+                         max_batches: Optional[int] = None,
+                         write_view: bool = False) -> None:
+        """Inference (reference `runner.py:690-868`): decode and
+        postprocess every tile, one lane JSON per tile.  The overlay PNGs
+        (``write_view``) wait for `utils/vis_utils.py`."""
+        from ..decode.postprocess import lane_maps_from_decode
+        from ..tools.export_lanes import lane_records
+
+        if write_view:
+            raise NotImplementedError(
+                "write_view needs utils/vis_utils.py, not ported to "
+                "lanemapping_tpu_torch yet")
+        os.makedirs(out_dir, exist_ok=True)
+        for i, batch in enumerate(loader):
+            if max_batches is not None and i >= max_batches:
+                break
+            dec = {k: v.cpu().numpy()
+                   for k, v in self._eval_decode(batch).items()}
+            maps = lane_maps_from_decode(dec, self.cfg)
+            names = batch.get("image_name",
+                              [f"b{i}_{j}" for j in
+                               range(len(maps["cls_offset_smooth"]))])
+            for j, name in enumerate(names):
+                with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+                    json.dump(lane_records(maps["cls_offset_smooth"][j]), f)

@@ -17,6 +17,13 @@ Layout: inputs NCHW (x [B,F,S,S], x_up [B,F,2S,2S], x_endp [B,1,8S,8S]);
 [B, P, ...] like the JAX package.  Module names are the reference's, so a
 reference checkpoint loads with ``load_state_dict``.  The ``column_att`` and
 ``column_transformer_decoder`` branches wait for a later slice.
+
+Training (``self.training``) follows the JAX head's ``train=True``: the
+endpoint branch, which only ``endp_mode='endpoint'`` reads, still runs on
+a [B, C+1, 1, 1] zero input so that its BatchNorm statistics move as flax
+moves them, and without ``fused_seg_focal`` the per-proposal
+full-resolution seg logits ``prop_bi_seg`` [B,P,8S,8W] are built for the
+unfused loss.
 """
 
 from __future__ import annotations
@@ -25,15 +32,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.interp import _upsample_then_pool_np, resize_bilinear_ac
+from ..ops.interp import (_interp_matrix_np, _upsample_then_pool_np,
+                          resize_bilinear_ac)
 from ..registry import HEADS
+from .norm import BatchNorm1d, BatchNorm2d
 
 BN_MOMENTUM = 0.1  # flax momentum 0.9
 BN_EPS = 1e-5
 
 
-def _bn2d(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn2d(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def _conv3(i: int, o: int, stride: int = 1) -> nn.Conv2d:
@@ -50,13 +59,14 @@ class ColumnProposalHead(nn.Module):
                  prop_width: int = 2, prop_half_buff: int = 4,
                  num_orients: int = 11, spatial_att: bool = True,
                  endp_mode: str = "endp_est", in_channels: int = 8,
-                 up_channels: int = 8):
+                 up_channels: int = 8, fused_seg_focal: bool = True):
         super().__init__()
         F_ = dim_feat
         self.dim_feat, self.row_size, self.num_prop = F_, row_size, num_prop
         self.prop_width, self.prop_half_buff = prop_width, prop_half_buff
         self.W = prop_width + 2 * prop_half_buff
         self.spatial_att, self.endp_mode = spatial_att, endp_mode
+        self.fused_seg_focal = fused_seg_focal
         # local+global concat: correlator map + the encoder's fea_up
         col_ch = in_channels + up_channels
         # endpoint branch (reference `:371-373`): parameters always exist so
@@ -77,7 +87,7 @@ class ColumnProposalHead(nn.Module):
         def head1d(out_ch):
             return nn.Sequential(
                 nn.Conv1d(tok_ch, dim_shared, 1),
-                nn.BatchNorm1d(dim_shared, eps=BN_EPS, momentum=BN_MOMENTUM),
+                BatchNorm1d(dim_shared, eps=BN_EPS, momentum=BN_MOMENTUM),
                 nn.Conv1d(dim_shared, out_ch, 1))
 
         self.ext2 = head1d(3)
@@ -94,12 +104,11 @@ class ColumnProposalHead(nn.Module):
         return F.linear(h, seq[2].weight[:, :, 0], seq[2].bias)
 
     def forward(self, x, x_up, x_endp):
-        """-> raw map dict (inference; the per-proposal full-resolution
-        ``prop_bi_seg`` of the JAX head's unfused training loss is not
-        built)."""
+        """-> raw map dict."""
         S, P, W = self.row_size, self.num_prop, self.W
         pw, hb = self.prop_width, self.prop_half_buff
         B = x.shape[0]
+        need_prop_seg = self.training and not self.fused_seg_focal
         out = {}
 
         col_fea_up = torch.cat([resize_bilinear_ac(x, 2 * S, 2 * S), x_up],
@@ -108,6 +117,10 @@ class ColumnProposalHead(nn.Module):
             e_in = torch.cat([resize_bilinear_ac(col_fea_up, 8 * S, 8 * S),
                               x_endp], dim=1)
             out["endpoint"] = self.endpoint(F.relu(e_in))
+        elif self.training:
+            # flax's head runs the branch on zeros (`column_head.py:135-143`
+            # there): no output, but its BatchNorm statistics move
+            self.endpoint(x.new_zeros((B, col_fea_up.shape[1] + 1, 1, 1)))
 
         row_fea = self.head_common_layers(col_fea_up)  # [B,2F,S,S]
         out["orient"] = self.orient(row_fea)  # [B,O,S,S]
@@ -119,7 +132,7 @@ class ColumnProposalHead(nn.Module):
             raise ValueError(f"{P} proposals need a wider map than S={S}")
         local = local[:, :, :, :P].permute(0, 3, 2, 1, 4)  # [B,P,S,2F,W]
 
-        if self.spatial_att:
+        if self.spatial_att or need_prop_seg:
             # pointwise seg conv once over the padded map (== per window,
             # reference `:400`), then window the 1-channel map
             col_pad = F.pad(col_fea_up, (2 * hb, 2 * hb))
@@ -127,6 +140,12 @@ class ColumnProposalHead(nn.Module):
             seg_win = seg_full.unfold(2, 2 * W, 2 * pw)[:, :, :P]
             seg_win = seg_win.permute(0, 2, 1, 3)  # [B,P,2S,2W]
             out["prop_seg_small"] = seg_win
+        if need_prop_seg:
+            # align-corners upsample (2S,2W) -> (8S,8W) as two operators
+            uh = _operator(_interp_matrix_np(2 * S, 8 * S), seg_win)
+            uw = _operator(_interp_matrix_np(2 * W, 8 * W), seg_win)
+            out["prop_bi_seg"] = uh @ seg_win @ uw.T
+        if self.spatial_att:
             # attention = avgpool8(upsample(seg logits)); the reference
             # multiplies the *raw* logits into the features (`:400-402`)
             ch = _operator(_upsample_then_pool_np(2 * S, 8 * S, 8), seg_win)
@@ -169,4 +188,5 @@ def build_column_proposal2(cfg=None, dim_feat=8, row_size=144, dim_shared=100,
         prop_half_buff=prop_half_buff,
         num_orients=cfg.number_orients if cfg else 11,
         spatial_att=cfg.get("spatial_att", True) if cfg else True,
-        endp_mode=kw.get("endp_mode", "endp_est"), in_channels=in_ch)
+        endp_mode=kw.get("endp_mode", "endp_est"), in_channels=in_ch,
+        fused_seg_focal=cfg.get("fused_seg_focal", True) if cfg else True)

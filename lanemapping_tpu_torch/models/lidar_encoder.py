@@ -33,13 +33,14 @@ import torch.nn.functional as F
 from ..ops.interp import resize_bicubic, resize_bilinear_ac
 from ..ops.voxelize import voxelize_bev_zfold
 from ..registry import PCENCODER
+from .norm import BatchNorm2d
 
 BN_MOMENTUM = 0.1  # flax momentum 0.9
 BN_EPS = 1e-5
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn(ch: int) -> BatchNorm2d:
+    return BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class DenseZFoldEncoder(nn.Module):

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..ops.interp import resize_bilinear_ac
 from ..registry import PCENCODER
+from .norm import BatchNorm2d
 
 BN_MOMENTUM = 0.1  # flax momentum 0.9
 BN_EPS = 1e-5
@@ -45,13 +46,13 @@ class BasicBlock(nn.Module):
         d = dilation
         self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride, padding=d,
                                dilation=d, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn1 = BatchNorm2d(planes, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=d, dilation=d,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn2 = BatchNorm2d(planes, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.downsample = nn.Sequential(
             nn.Conv2d(in_planes, planes, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(planes, eps=BN_EPS, momentum=BN_MOMENTUM)) \
+            BatchNorm2d(planes, eps=BN_EPS, momentum=BN_MOMENTUM)) \
             if has_downsample else None
 
     def forward(self, x):
@@ -93,7 +94,7 @@ class FPNEncoder(nn.Module):
         self.has_c4, self.has_c5 = chans[2] > 0, chans[3] > 0
         dil = replace_stride_with_dilation
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.layer1 = ResStage(64, chans[0], layers[0])
         self.layer2 = ResStage(chans[0], chans[1], layers[1], 2, dil[0])
         if self.has_c4:

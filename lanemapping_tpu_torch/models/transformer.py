@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .norm import Dropout
+
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
 
@@ -23,9 +25,9 @@ class FeedForward(nn.Module):
         super().__init__()
         # net.1 is the GELU (applied functionally below), net.2/4 dropouts
         self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.Identity(),
-                                 nn.Dropout(dropout),
+                                 Dropout(dropout),
                                  nn.Linear(hidden_dim, dim),
-                                 nn.Dropout(dropout))
+                                 Dropout(dropout))
 
     def forward(self, x):
         y = F.gelu(self.net[0](x), approximate="tanh")
@@ -42,7 +44,7 @@ class Attention(nn.Module):
         self.scale = dim_head ** -0.5
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         self.project_out = not (heads == 1 and dim_head == dim)
-        self.to_out = nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout)) \
+        self.to_out = nn.Sequential(nn.Linear(inner, dim), Dropout(dropout)) \
             if self.project_out else nn.Identity()
 
     def forward(self, x):

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from ..registry import BACKBONE
+from .norm import Dropout
 from .transformer import Transformer
 
 
@@ -50,7 +51,7 @@ class VitSegNet(nn.Module):
         self.to_patch_embedding = nn.Sequential(
             nn.Identity(), nn.Linear(p * p * channels, dim))
         self.pos_embedding = nn.Parameter(torch.randn(1, n_tok, dim))
-        self.dropout = nn.Dropout(emb_dropout)
+        self.dropout = Dropout(emb_dropout)
         self.transformer = Transformer(dim, depth, heads, dim_head,
                                        int(dim * expansion_factor), dropout)
         self.shared_mlp = nn.Conv2d(dim // (p * p), output_channels, 1) \

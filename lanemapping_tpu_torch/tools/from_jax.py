@@ -12,6 +12,11 @@ has no dense counterpart): its torch names are the flax module names.
 Layouts: flax conv HWIO -> torch OIHW; Dense [I,O] -> Linear [O,I];
 Dense [I,O] -> Conv1d(k=1) [O,I,1]; BatchNorm scale/bias + batch_stats
 mean/var -> weight/bias/running_mean/running_var.
+
+``adam_state_from_jax`` carries an optax Adam state (``mu``, ``nu`` trees
+laid out like the params, and ``count``) into a ``torch.optim.Adam`` /
+``AdamW`` and its ``LambdaLR``, so both packages can go on from one
+mid-training state.
 """
 
 from __future__ import annotations
@@ -227,3 +232,34 @@ def load_jax_weights(model: torch.nn.Module, params: Dict, batch_stats: Dict,
         raise KeyError(f"JAX weights do not cover the port model: missing "
                        f"{missing[:8]}, unexpected {unexpected[:8]}")
     return model
+
+
+def adam_state_from_jax(state, mu: Dict, nu: Dict, count: int,
+                        cfg) -> None:
+    """Set the optimizer and scheduler of a train state
+    (`engine/state.py::TrainState`) to an optax Adam state: ``mu`` and
+    ``nu`` (numpy trees shaped like the flax params, of
+    ``ScaleByAdamState``) become each parameter's ``exp_avg`` and
+    ``exp_avg_sq``, ``count`` its ``step`` and the scheduler's position
+    (optax's schedule counts the same updates).  Every parameter must be
+    covered."""
+    rules = rules_for(cfg)
+    m_sd = params_from_jax(mu, {}, rules)
+    v_sd = params_from_jax(nu, {}, rules)
+    named = dict(state.model.named_parameters())
+    missing = sorted(set(named) - set(m_sd)) + sorted(set(named) - set(v_sd))
+    if missing:
+        raise KeyError(f"the Adam state does not cover {missing[:8]}")
+    for name, p in named.items():
+        st = state.optimizer.state[p]
+        st["step"] = torch.tensor(float(count))
+        st["exp_avg"] = torch.zeros_like(p).copy_(m_sd[name].view(p.shape))
+        st["exp_avg_sq"] = torch.zeros_like(p).copy_(
+            v_sd[name].view(p.shape))
+    sched = state.scheduler
+    sched.last_epoch = int(count)
+    lrs = [base * f(int(count))
+           for base, f in zip(sched.base_lrs, sched.lr_lambdas)]
+    for group, lr in zip(state.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    sched._last_lr = lrs

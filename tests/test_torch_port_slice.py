@@ -139,12 +139,16 @@ def test_import_loads_no_jax_and_no_jax_package():
         "new = ['kernels.voxel_bin', 'models.lidar_encoder',\n"
         "       'data.laserlane', 'data.label_gen', 'data.proposal_gt',\n"
         "       'data.synthetic', 'engine.state', 'tools.las2bev',\n"
-        "       'tools.stream_map']\n"
+        "       'tools.stream_map', 'ops.losses', 'models.norm',\n"
+        "       'models.head_losses', 'engine.optimizer',\n"
+        "       'engine.checkpoint', 'engine.runner', 'utils.metrics',\n"
+        "       'utils.skeleton', 'tools.train']\n"
         "missing = [m for m in new\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'optax', 'orbax',\n"
         "                                    'lanemapping_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")

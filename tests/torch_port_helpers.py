@@ -172,3 +172,133 @@ def assert_same_records(got, want):
             sg, sw = np.asarray(rg["seq"]), np.asarray(rw["seq"])
             np.testing.assert_array_equal(sg[:, [0, 2]], sw[:, [0, 2]])
             np.testing.assert_allclose(sg[:, 1], sw[:, 1], atol=1e-3)
+
+
+# -- training ---------------------------------------------------------------
+
+def wire_data_root(cfg, root):
+    """Point every split of a config (JAX or port) at ``root``."""
+    for split in ("train", "val", "test"):
+        cfg.dataset[split]["data_root"] = root
+    return cfg
+
+
+def jax_device_batch(cfg_j, batch):
+    """The JAX Runner's shipped batch (`engine/runner.py::_device_batch`)
+    of a host batch, on one CPU device, as numpy arrays: the Runner's own
+    method on a stand-in that carries only what it reads."""
+    from lanemapping_tpu.engine.runner import Runner
+    from lanemapping_tpu.parallel.mesh import make_mesh
+
+    stub = object.__new__(Runner)
+    stub.cfg = cfg_j
+    stub.use_lidar = bool(cfg_j.get("use_lidar", False))
+    stub.mesh = make_mesh(cfg_j, devices=jax.devices()[:1])
+    return {k: np.asarray(v) for k, v in stub._device_batch(batch).items()}
+
+
+def port_batch_numpy(db):
+    """A port device batch as numpy arrays (bf16 widened exactly)."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+            for k, v in db.items()}
+
+
+def port_runner(cfg_t, variables, log_dir):
+    """A CPU ``Runner`` of the port holding the JAX variables."""
+    from lanemapping_tpu_torch.engine.runner import Runner
+    from lanemapping_tpu_torch.tools.from_jax import load_jax_weights
+
+    runner = Runner(cfg_t, log_dir=str(log_dir), device="cpu")
+    load_jax_weights(runner.model, variables["params"],
+                     variables["batch_stats"], cfg_t)
+    return runner
+
+
+def jax_train_state(cfg_j, variables):
+    """(tx, TrainState) of the JAX package from numpy variables."""
+    from lanemapping_tpu.engine.optimizer import build_optimizer
+    from lanemapping_tpu.engine.state import TrainState
+
+    tx = build_optimizer(cfg_j)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    return tx, TrainState(params=params,
+                          batch_stats=jax.tree.map(jnp.asarray,
+                                                   variables["batch_stats"]),
+                          opt_state=tx.init(params),
+                          step=jnp.zeros((), jnp.int32))
+
+
+def mid_training_adam(grads, seed, count=10):
+    """A seeded mid-training Adam state at update ``count`` for gradients
+    like ``grads`` (numpy tree in the flax layout): per leaf, with s the
+    RMS of its gradient floored at 1e-3 of the largest leaf RMS, the
+    bias-corrected second moment is s^2 * U(0.5, 2) and the corrected
+    first moment N(0, (0.3 s)^2) — the moments Adam holds after steps of
+    gradients of this size.  The floor keeps a leaf whose gradient is
+    rounding noise (a bias before a batch-statistics BatchNorm, exactly 0
+    in exact arithmetic) from being scaled up to a full lr step."""
+    rng = np.random.RandomState(seed)
+    rms = jax.tree.map(lambda g: float(np.sqrt(np.mean(np.square(g)))),
+                       grads)
+    floor = 1e-3 * max(jax.tree.leaves(rms))
+    c1, c2 = 1.0 - 0.9 ** count, 1.0 - 0.999 ** count
+    mu = jax.tree.map(lambda g, r: (rng.normal(0.0, 0.3 * max(r, floor),
+                                               g.shape) * c1
+                                    ).astype(np.float32), grads, rms)
+    nu = jax.tree.map(lambda g, r: (max(r, floor) ** 2 * rng.uniform(
+        0.5, 2.0, g.shape) * c2).astype(np.float32), grads, rms)
+    return mu, nu, count
+
+
+def with_adam_state(opt_state, mu, nu, count):
+    """An optax ``adam`` state (ScaleByAdamState, ScaleByScheduleState)
+    set to (mu, nu, count)."""
+    adam, sched = opt_state
+    c = jnp.asarray(count, jnp.int32)
+    return (adam._replace(count=c, mu=jax.tree.map(jnp.asarray, mu),
+                          nu=jax.tree.map(jnp.asarray, nu)),
+            sched._replace(count=c))
+
+
+def jax_train_step(jmodel, tx, cfg_j):
+    """The JAX package's jitted train step at ``cfg_j``'s compute dtype."""
+    from lanemapping_tpu.engine.state import make_train_step
+    from lanemapping_tpu.models.head_losses import (column_proposal_loss,
+                                                    head_hparams)
+
+    hp = head_hparams(cfg_j)
+    cdt = jnp.bfloat16 if cfg_j.get("train_compute_dtype") == "bfloat16" \
+        else None
+    return jax.jit(make_train_step(
+        jmodel, tx, lambda out, batch: column_proposal_loss(out, batch, hp),
+        compute_dtype=cdt, use_lidar=bool(cfg_j.get("use_lidar", False))))
+
+
+def state_dict_np(model):
+    return {k: v.detach().float().numpy()
+            for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def jax_grads(jmodel, cfg_j):
+    """Jitted (params, batch_stats, device batch) -> ((loss, (terms, new
+    batch stats)), parameter gradients) of the JAX step's differentiated
+    function (`engine/state.py:84-99` there), without its dtype cast."""
+    from lanemapping_tpu.engine.state import model_input
+    from lanemapping_tpu.models.head_losses import (column_proposal_loss,
+                                                    head_hparams)
+    hp = head_hparams(cfg_j)
+    use_lidar = bool(cfg_j.get("use_lidar", False))
+
+    @jax.jit
+    def run(params, batch_stats, batch):
+        def inner(p):
+            out, upd = jmodel.apply(
+                {"params": p, "batch_stats": batch_stats},
+                model_input(batch, use_lidar), train=True,
+                mutable=["batch_stats"])
+            res = column_proposal_loss(out, batch, hp)
+            return res["loss"], (res["loss_stats"], upd["batch_stats"])
+        return jax.value_and_grad(inner, has_aux=True)(params)
+
+    return run
