@@ -75,8 +75,32 @@ or outside a checkout.  Phases, each of which fails the run:
    as the CPU parity tests): every loss term within rel 1e-4 at every
    step, every parameter and BatchNorm buffer within rel-max 2e-3.
 
-Phases 9 and 10 run with PyTorch's default precision flags (TF32
-convolutions on).  Before the last line it prints ``{"kernels": [...]}``
+12. the four other shipped configs at full width, seeded random weights:
+   RowRef (``configs/Proj28_GFC-T3_RowRef_82_73_laser.py``: FPN, ViT,
+   RowSharNotReducRef), Seg (``Proj28_GFC-T3_Seg_82_11_laser.py``: the
+   legacy Detector, ResNet projector, ViT with shared MLP, GridSeg), FPN
+   Seg (``Proj_FPN_Seg.py``: the Segmentor) and MixSeg
+   (``Proj_polyline_fpn_mixseg_vertex.py``: the flagship with MixSegNet):
+   ``Runner.validate`` over phase 7's 16 tiles at batch 8, then the
+   config's export driver over 8 of them (``infer_grid_and_export``,
+   ``infer_segmentor_and_export`` or ``infer_and_export``,
+   ``write_view=False``): one lane JSON per tile with the record schema
+   (the Segmentor returns its metrics instead), every head map of a batch
+   finite and of the expected shape, the metric keys present; device ms
+   per batch of the forward and the decode (CUDA events) and host ms of
+   the rest; K1's and K1z's launch counts over the run;
+13. ``Runner.train(max_iters=3)`` for each of the four at its own batch (8,
+   4, 6, 8) and training precision (bf16 but the Segmentor, float32):
+   every loss term finite, no NaN-guard skip, s/step from CUDA events
+   after the warm-up step, peak ``max_memory_allocated``, one more step
+   under ``torch.profiler``;
+14. each of the four on the card against the port on the CPU at tiny
+   widths, float32 with TF32 off, from the same seeded weights: the
+   forward's outputs within rel-max 2e-3, the same decoded maps and lane
+   records, one train step's loss terms within rel 1e-4.
+
+Phases 9, 10, 12 and 13 run with PyTorch's default precision flags (TF32
+convolutions on).  Each phase prints its wall time.  Before the last line it prints ``{"kernels": [...]}``
 (with each kernel's launches on the serving and the training path); the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -97,6 +121,35 @@ TINY = os.path.join(HERE, "configs", "tiny_test.py")
 LIDAR = os.path.join(HERE, "configs",
                      "Proj_polyline_lidarconv_vit_vertex_2.py")
 TINY_LIDAR = os.path.join(HERE, "configs", "tiny_test_lidar.py")
+# the other shipped configs (phases 12-14): file, batch of its training
+ZOO = {"rowref": ("Proj28_GFC-T3_RowRef_82_73_laser.py", 8),
+       "gridseg": ("Proj28_GFC-T3_Seg_82_11_laser.py", 4),
+       "fpnseg": ("Proj_FPN_Seg.py", 6),
+       "mixseg": ("Proj_polyline_fpn_mixseg_vertex.py", 8)}
+# phase 14's tiny widths: 192 px tiles (S = 24), ResNet-18 trunks, a
+# one-block correlator of width 128, float32; weight seeds that put every
+# decision of the forward and decode on phase 14's tiles at least 1.7e-5
+# from its threshold (row argmaxes and gates, grid confidence and class,
+# segmentation classes, endpoint top-k, proposal confidence and column
+# argmax; measured on the CPU)
+_TINY_VIT = {"backbone.image_size": 24, "backbone.dim": 128,
+             "backbone.depth": 1, "backbone.heads": 4,
+             "backbone.dim_head": 32}
+ZOO_TINY = {
+    "rowref": {**_TINY_VIT, "heads.dim_feat": 2, "heads.row_size": 24,
+               "heads.dim_shared": 32, "heads.dim_token": 64,
+               "heads.tr_heads": 4, "heads.tr_dim_head": 16,
+               "heads.tr_mlp_dim": 128, "seed": 17},
+    "gridseg": {**_TINY_VIT, "backbone.output_channels": 16,
+                "heads.num_1": 16, "heads.num_2": 32, "seed": 3},
+    "fpnseg": {"seed": 18},
+    "mixseg": {"backbone.image_size": 24, "backbone.dim": 128,
+               "backbone.depth": 1, "heads.row_size": 24,
+               "heads.num_prop": 12, "heads.dim_shared": 32, "seed": 5},
+}
+ZOO_TINY_COMMON = {"list_img_size_xy": [192, 192],
+                   "pcencoder.resnet": "resnet18", "batch_size": 2,
+                   "workers": 0, "train_compute_dtype": "float32"}
 B, N_POINTS, IMG = 8, 1 << 19, 1152
 N_CLOUDS = 16
 GRID = (576, 576, 10)  # the LiDAR config's voxel grid, x, y, z
@@ -569,7 +622,12 @@ def head_shapes(S, P):
             "offset2": (B, P, S, 10), "prop_seg_small": (B, P, 2 * S, 20)}
 
 
+LANE_RECORD_KEYS = {"lane_id", "seq_len", "init_vertex", "end_vertex", "seq"}
+
+
 def check_lane_jsons(lanes_dir, n_tiles):
+    """One lane JSON per tile, each record with the record schema and
+    finite vertices; (file names, lane count)."""
     import numpy as np
     names = sorted(os.listdir(lanes_dir))
     check(len(names) == n_tiles, f"{len(names)} lane JSONs written")
@@ -578,8 +636,10 @@ def check_lane_jsons(lanes_dir, n_tiles):
         with open(os.path.join(lanes_dir, n)) as f:
             recs = json.load(f)
         for r in recs:
+            check(LANE_RECORD_KEYS <= set(r), f"{n}: record keys {sorted(r)}")
             seq = np.asarray(r["seq"], np.float64)
             check(np.isfinite(seq).all(), f"{n}: non-finite lane vertex")
+            check(r["seq_len"] == len(seq), f"{n}: seq_len {r['seq_len']}")
         n_lanes += len(recs)
     return names, n_lanes
 
@@ -1042,10 +1102,313 @@ def phase_train_card_vs_cpu(root, log_dir):
             f"worst rel-max {worst[0]:.3e} ({worst[1]})")
 
 
+def zoo_cfg(name, root, **over):
+    return train_cfg(os.path.join(HERE, "configs", ZOO[name][0]), root,
+                     **over)
+
+
+def zoo_shapes(name, cfg):
+    """The raw outputs of a batch of B full-width tiles."""
+    S, N = IMG // 8, cfg.number_lanes
+    enc = {"semantic_seg": (B, IMG, IMG, 3), "endp_est": (B, IMG, IMG, 1)}
+    if name == "rowref":
+        return {**enc, "ext": (B, N, S, 2), "cls": (B, N, S, S),
+                "ext2": (B, N, S, 2), "cls2": (B, N, S, S)}
+    if name == "gridseg":
+        return {"conf": (B, S, S), "cls": (B, S, S, cfg.heads.num_classes)}
+    if name == "fpnseg":
+        return enc
+    return head_shapes(S, cfg.heads.num_prop)
+
+
+class ForwardDecodeClock:
+    """CUDA events per batch around a Runner's forward (hooks on its
+    model) and around its device method (forward + decode), which it
+    wraps: device ms of the forward and of the decode after it."""
+
+    def __init__(self, runner, method):
+        import torch
+        self.events = []
+
+        def mark():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        runner.model.register_forward_pre_hook(
+            lambda mod, inp: self.events.append([mark()]))
+        runner.model.register_forward_hook(
+            lambda mod, inp, out: self.events[-1].append(mark()))
+        inner = getattr(runner, method)
+
+        def timed(batch):
+            out = inner(batch)
+            self.events[-1].append(mark())
+            return out
+        setattr(runner, method, timed)
+
+    def ms(self):
+        """(forward ms, decode ms) per batch; clears the record."""
+        import torch
+        torch.cuda.synchronize()
+        fwd = [a.elapsed_time(b) for a, b, _ in self.events]
+        dec = [b.elapsed_time(c) for _, b, c in self.events]
+        self.events = []
+        return fwd, dec
+
+
+def phase_zoo_serving(root, out_root):
+    """Phase 12: validate and export each of the four configs at full
+    width.  Returns {config: launch counts}."""
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    from lanemapping_tpu_torch.engine.runner import KLANE_HEADS, Runner
+    from lanemapping_tpu_torch.engine.state import eval_step
+
+    torch_defaults()
+    metric_keys = {"rowref": {"conf_f1", "composite"},
+                   "gridseg": {"conf_f1", "composite"},
+                   "fpnseg": {"seg_f1", "endp_f1", "composite"},
+                   "mixseg": {"coor_f1", "endp_f1", "composite",
+                              "semantic_f1"}}
+    launches = {}
+    for name in ZOO:
+        # no gt_cache: the training phases' cached samples (train mode)
+        # lack the labels validation reads (the cache is keyed without the
+        # split's mode, in both packages)
+        cfg = zoo_cfg(name, root, batch_size=B, workers=8)
+        runner = Runner(cfg, log_dir=os.path.join(out_root, name, "log"))
+        check(runner.device.type == "cuda", f"{name}: on {runner.device}")
+        segmentor = cfg.net.type == "Segmentor"
+        method = "_eval_seg" if segmentor else (
+            "_eval_grid" if runner.head_type in KLANE_HEADS
+            else "_eval_decode")
+        clock = ForwardDecodeClock(runner, method)
+        # every tile of phase 7's dataset, with its labels
+        split = dict(cfg.dataset.val, mode="pretrain")
+
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = runner.validate(
+            loader=build_dataloader(split, cfg, is_train=False))
+        wall = time.perf_counter() - t0
+        fwd, dec = clock.ms()
+        check(len(fwd) == N_CLOUDS // B, f"{name}: {len(fwd)} batches")
+        check(metric_keys[name] <= set(metrics) and all(
+            math.isfinite(v) for v in metrics.values()),
+            f"{name}: validate metrics {metrics}")
+        f_ms, d_ms = (sum(v) / len(v) for v in (fwd, dec))
+        log(f"{name} validate: {N_CLOUDS} tiles in {wall:.3f} s "
+            f"({N_CLOUDS / wall:.4f} tiles/s), batch {B}; device ms per "
+            f"batch forward {f_ms:.4f} (each {[round(v, 4) for v in fwd]}),"
+            f" decode {d_ms:.4f}; host ms per batch of the rest "
+            f"{wall * 1e3 / len(fwd) - f_ms - d_ms:.4f}; metrics {metrics}")
+
+        out_dir = os.path.join(out_root, name, "export")
+        loader = build_dataloader(split, cfg, is_train=False)
+        t0 = time.perf_counter()
+        if segmentor:
+            m = runner.infer_segmentor_and_export(loader, out_dir,
+                                                  max_batches=1)
+            check({"coor_conf_f1", "semantic_conf_f1"} <= set(m)
+                  and all(math.isfinite(v) for v in m.values()),
+                  f"{name}: segmentor metrics {m}")
+            what = f"metrics {m}"
+        else:
+            if runner.head_type in KLANE_HEADS:
+                runner.infer_grid_and_export(loader, out_dir, max_batches=1)
+            else:
+                runner.infer_and_export(loader, out_dir, max_batches=1)
+            _, n_lanes = check_lane_jsons(out_dir, B)
+            what = f"{B} lane JSONs, {n_lanes} lanes"
+        wall = time.perf_counter() - t0
+        fwd, dec = clock.ms()
+        launches[name] = read_launches()
+        log(f"{name} export: {what} in {wall:.3f} s; device ms forward "
+            f"{fwd[0]:.4f}, decode {dec[0]:.4f}; host ms of the rest "
+            f"{wall * 1e3 - fwd[0] - dec[0]:.4f}; launches "
+            f"{launches[name]}")
+
+        batch = next(iter(build_dataloader(split, cfg, is_train=False)))
+        out = eval_step(runner.model, runner._eval_input(batch))
+        want = zoo_shapes(name, cfg)
+        check(set(out) == set(want), f"{name}: output keys {sorted(out)}")
+        for k, shape in want.items():
+            check(tuple(out[k].shape) == shape,
+                  f"{name} {k} shape {tuple(out[k].shape)}")
+            check(out[k].dtype == torch.float32, f"{name} {k} {out[k].dtype}")
+            check(bool(torch.isfinite(out[k]).all()),
+                  f"{name} {k} is not finite")
+        log(f"{name}: outputs finite with the expected shapes")
+        del runner, out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_zoo_train(root, log_root):
+    """Phase 13: three steps of each of the four configs at full width.
+    Returns {config: launch counts}."""
+    import torch
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    from lanemapping_tpu_torch.engine.runner import Runner
+
+    torch_defaults()
+    launches = {}
+    for name, (_, batch) in ZOO.items():
+        log_dir = os.path.join(log_root, name)
+        cfg = zoo_cfg(name, root, log_every=1, eval_ep=10 ** 6,
+                      save_ep=10 ** 6, gt_cache=True, workers=8)
+        check(cfg.batch_size == batch, f"{name}: batch {cfg.batch_size}")
+        runner = Runner(cfg, log_dir=log_dir)
+        step, times = runner.train_step, []
+
+        def timed_step(state, b, step=step):
+            a = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            a.record()
+            stats = step(state, b)  # reads the loss on the host
+            e.record()
+            times.append((a, e))
+            return stats
+
+        runner.train_step = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        runner.train(max_iters=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        runner.train_step = step
+
+        recs = train_records(log_dir)
+        check(len(recs) == 3, f"{name}: {len(recs)} steps logged")
+        terms = sorted(k for k in recs[0]
+                       if k not in ("epoch", "iter", "skipped_nan"))
+        for r in recs:
+            bad = [k for k in terms if not math.isfinite(r[k])]
+            check(not bad, f"{name}: non-finite {bad} at step {r['iter']}")
+            check(r["skipped_nan"] == 0.0, f"{name}: NaN guard fired")
+        step_ms = [a.elapsed_time(e) for a, e in times]
+        s_step = sum(step_ms[1:]) / len(step_ms[1:]) / 1e3
+        dtype = cfg.get("train_compute_dtype") or "float32"
+        log(f"{name} training: 3 steps of batch {batch} ({dtype}) via "
+            f"Runner.train in {wall:.3f} s; per step (CUDA events) ms "
+            f"{[round(t, 4) for t in step_ms]}; after the warm-up step "
+            f"{s_step:.5f} s/step, {batch / s_step:.4f} tiles/s; peak "
+            f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; launches "
+            f"{launches[name]}; losses {[round(r['loss'], 5) for r in recs]}"
+            f"; terms of the last step " + ", ".join(
+                f"{k} {recs[-1][k]:.5f}" for k in terms if k != "loss"))
+        db = runner._device_batch(next(iter(build_dataloader(
+            cfg.dataset.train, cfg))))
+        rows, total_ms, conv_ms = profile_step(runner, db)
+        log(f"{name}: profiled step, device ms {total_ms:.3f} (kernels), "
+            f"convolutions {conv_ms:.3f} ms ({conv_ms / total_ms:.1%}); top "
+            f"ops by own device time: " + "; ".join(
+                f"{k} {ms:.3f} ms ({ms / total_ms:.1%}, x{n})"
+                for ms, k, n in rows))
+        del runner, db
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_zoo_card_vs_cpu(root, log_root):
+    """Phase 14: each of the four configs at tiny widths, the port on the
+    card against the port on the CPU, float32, TF32 off, from the same
+    seeded weights."""
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    from lanemapping_tpu_torch.data.synthetic import generate_dataset
+    from lanemapping_tpu_torch.decode.postprocess import lane_maps_from_decode
+    from lanemapping_tpu_torch.decode.row_decode import row_lane_maps
+    from lanemapping_tpu_torch.engine.runner import KLANE_HEADS, Runner
+    from lanemapping_tpu_torch.engine.state import eval_step
+    from lanemapping_tpu_torch.tools.export_lanes import lane_records
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    names = [f"{190000 + i:06d}_{i:04d}" for i in range(6)]
+    generate_dataset(root, n_tiles=6, img=192, seed=5, splits={
+        "train": names[:4], "valid": names[4:], "test": names[4:]})
+    for name, (path, _) in ZOO.items():
+        cfg = Config.fromfile(os.path.join(HERE, "configs", path))
+        cfg.merge_from_dict({**ZOO_TINY_COMMON, **ZOO_TINY[name]})
+        for split in ("train", "val", "test"):
+            cfg.dataset[split]["data_root"] = root
+        runners = {d: Runner(cfg, log_dir=os.path.join(log_root, name, d),
+                             device=d) for d in ("cpu", "cuda")}
+        batch = next(iter(build_dataloader(cfg.dataset.val, cfg,
+                                           is_train=False)))
+        outs, decided = {}, {}
+        for d, r in runners.items():
+            outs[d] = {k: v.float().cpu().numpy() for k, v in eval_step(
+                r.model, r._eval_input(batch)).items()}
+            if cfg.net.type == "Segmentor":
+                decided[d] = r._host(r._eval_seg(batch))
+                continue
+            if r.head_type in KLANE_HEADS:
+                maps = row_lane_maps(r._host(r._eval_grid(batch)), cfg,
+                                     r.head_type)
+                decided[d] = {"cls_idx": maps["cls_idx"]}
+            else:
+                maps = lane_maps_from_decode(r._host(r._eval_decode(batch)),
+                                             cfg)
+                decided[d] = {}
+            decided[d]["records"] = [lane_records(m)
+                                     for m in maps["cls_offset_smooth"]]
+        worst = max((float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max()
+                           / max(1e-3, np.abs(outs["cpu"][k]).max())), k)
+                    for k in outs["cpu"])
+        check(set(outs["cuda"]) == set(outs["cpu"]) and worst[0] < 2e-3,
+              f"tiny {name}: {worst[1]} rel-max {worst[0]:.3e} >= 2e-3")
+        n_rec = 0
+        for k, c in decided["cpu"].items():
+            g = decided["cuda"][k]
+            if k != "records":
+                check(np.array_equal(g, c), f"tiny {name}: {k} differs")
+                continue
+            for rg, rc in zip(g, c):
+                check([(r["lane_id"], r["seq_len"]) for r in rg]
+                      == [(r["lane_id"], r["seq_len"]) for r in rc],
+                      f"tiny {name}: lane records differ")
+                for a, b in zip(rg, rc):
+                    sa, sb = np.asarray(a["seq"]), np.asarray(b["seq"])
+                    check(np.array_equal(sa[:, [0, 2]], sb[:, [0, 2]]) and
+                          np.allclose(sa[:, 1], sb[:, 1], atol=1e-3),
+                          f"tiny {name}: lane {a['lane_id']} differs")
+                    n_rec += 1
+
+        train_batch = next(iter(build_dataloader(cfg.dataset.train, cfg)))
+        stats = {d: r.train_step(r.state, r._device_batch(train_batch))
+                 for d, r in runners.items()}
+        worst_loss = (0.0, "")
+        for k in stats["cpu"]:
+            c, g = float(stats["cpu"][k]), float(stats["cuda"][k])
+            err = abs(g - c) / max(abs(c), 1e-12) if c or g else 0.0
+            check(err < 1e-4, f"tiny {name} step {k}: card {g} cpu {c} "
+                  f"(rel {err:.3e})")
+            worst_loss = max(worst_loss, (err, k))
+        log(f"tiny {name} card vs cpu: worst output rel-max {worst[0]:.3e} "
+            f"({worst[1]}); decoded maps {sorted(decided['cpu'])} "
+            f"identical ({n_rec} lane records, columns to 1e-3 px); one "
+            f"step's loss {float(stats['cpu']['loss']):.6f}, worst term rel "
+            f"{worst_loss[0]:.3e} ({worst_loss[1]})")
+
+
 def main():
     if not (os.path.isdir(os.path.join(HERE, "lanemapping_tpu_torch", "csrc"))
             and all(os.path.isfile(c) for c in (FLAGSHIP, TINY, LIDAR,
-                                                 TINY_LIDAR))):
+                                                 TINY_LIDAR))
+            and all(os.path.isfile(os.path.join(HERE, "configs", f))
+                    for f, _ in ZOO.values())):
         print("[chip_smoke] FAIL: run from the root of a lanemapping_tpu "
               "checkout (lanemapping_tpu_torch/ and configs/ beside this "
               "script)", file=sys.stderr)
@@ -1057,8 +1420,15 @@ def main():
               "is False)", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    card, kind = phase_card()
-    phase_build()
+
+    def phase(n, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"phase {n} ({fn.__name__}) wall {time.perf_counter() - t0:.3f} s")
+        return out
+
+    card, kind = phase(1, phase_card)
+    phase(2, phase_build)
     from lanemapping_tpu_torch.data.synthetic import generate_dataset
     from lanemapping_tpu_torch.tools.las2bev import DEFAULT_PC_RANGE
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1067,9 +1437,10 @@ def main():
         write_clouds(root, N_CLOUDS, IMG, N_POINTS, seed0=0)
         log(f"wrote {N_CLOUDS} clouds of {N_POINTS} points in "
             f"{time.perf_counter() - t0:.3f} s")
-        k1 = phase_k1(root, DEFAULT_PC_RANGE)
-        k1["launches"], _ = phase_slice(root, os.path.join(tmp, "out"))
-        phase_card_vs_cpu(os.path.join(tmp, "tiny"))
+        k1 = phase(3, phase_k1, root, DEFAULT_PC_RANGE)
+        k1["launches"], _ = phase(4, phase_slice, root,
+                                  os.path.join(tmp, "out"))
+        phase(5, phase_card_vs_cpu, os.path.join(tmp, "tiny"))
 
         lidar_root = os.path.join(tmp, "lidar")
         t0 = time.perf_counter()
@@ -1084,21 +1455,33 @@ def main():
         check(stems == names, "the dataset's tile names changed")
         log(f"wrote a LaserLane dataset of {N_CLOUDS} tiles with clouds of "
             f"{N_POINTS} points in {time.perf_counter() - t0:.3f} s")
-        k1z = phase_k1z(lidar_root, stems, DEFAULT_PC_RANGE)
-        k1z["launches"], _ = phase_lidar_slice(
-            lidar_root, stems, os.path.join(tmp, "out_lidar"))
-        phase_lidar_card_vs_cpu(os.path.join(tmp, "tiny_lidar"))
+        k1z = phase(6, phase_k1z, lidar_root, stems, DEFAULT_PC_RANGE)
+        k1z["launches"], _ = phase(7, phase_lidar_slice, lidar_root, stems,
+                                   os.path.join(tmp, "out_lidar"))
+        phase(8, phase_lidar_card_vs_cpu, os.path.join(tmp, "tiny_lidar"))
 
-        train = phase_train("flagship training", FLAGSHIP, lidar_root,
-                            os.path.join(tmp, "train_flagship"),
-                            n_steps=8, lidar=False)
+        train = phase(9, phase_train, "flagship training", FLAGSHIP,
+                      lidar_root, os.path.join(tmp, "train_flagship"),
+                      n_steps=8, lidar=False)
         k1["launches_train"] = train["launches"]["bev_bin_mean"]
-        train = phase_train("lidar training", LIDAR, lidar_root,
-                            os.path.join(tmp, "train_lidar"), n_steps=6,
-                            lidar=True)
+        train = phase(10, phase_train, "lidar training", LIDAR, lidar_root,
+                      os.path.join(tmp, "train_lidar"), n_steps=6,
+                      lidar=True)
         k1z["launches_train"] = train["launches"]["voxel_bin_mean"]
-        phase_train_card_vs_cpu(os.path.join(tmp, "tiny_train"),
-                                os.path.join(tmp, "train_tiny"))
+        phase(11, phase_train_card_vs_cpu, os.path.join(tmp, "tiny_train"),
+              os.path.join(tmp, "train_tiny"))
+
+        serving = phase(12, phase_zoo_serving, lidar_root,
+                        os.path.join(tmp, "zoo"))
+        training = phase(13, phase_zoo_train, lidar_root,
+                         os.path.join(tmp, "zoo_train"))
+        for k in (k1, k1z):
+            k["launches_zoo"] = {
+                name: {"serving": serving[name][k["name"]],
+                       "training": training[name][k["name"]]}
+                for name in ZOO}
+        phase(14, phase_zoo_card_vs_cpu, os.path.join(tmp, "tiny_zoo"),
+              os.path.join(tmp, "zoo_tiny_logs"))
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

@@ -17,8 +17,8 @@ from .registry import (BACKBONE, DATASETS, HEADS, NET, PCENCODER,  # noqa: F401
                        build_heads, build_net, build_pcencoder)
 
 # importing model/data modules populates the registries
-from .models import (column_head, lidar_encoder, nets,  # noqa: F401,E402
-                     resnet_fpn, vit)
+from .models import (column_head, legacy, lidar_encoder,  # noqa: F401,E402
+                     nets, resnet_fpn, row_head, vit)
 from .data import las_tiles, laserlane  # noqa: F401,E402
 from .models.nets import build_model  # noqa: F401,E402
 from .api import LaneMapper  # noqa: F401,E402

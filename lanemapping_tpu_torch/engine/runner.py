@@ -15,9 +15,13 @@ mono tile as one channel, bf16 ``endp_map`` under bf16 training where the
 u8 round trip does not apply (the LiDAR path), the LiDAR points as they
 are.  On a card the host tensors are pinned and copied ``non_blocking``.
 
-Only the ColumnProposal2 head trains here; the Segmentor, RowSharNotReducRef
-and GridSeg branches wait for their models.  TensorBoard is left out (the
-JAX package skips it when it is absent).
+It trains, validates and exports every net and head of the shipped
+configs: Detector1stage with ColumnProposal2 (lane validation and lane
+JSONs), with RowSharNotReducRef or GridSeg (grid validation and the KLane
+export driver; also under the legacy Detector), and the Segmentor
+(segmentation validation and its metrics driver).  Any other combination is
+refused.  TensorBoard is left out (the JAX package skips it when it is
+absent).
 """
 
 from __future__ import annotations
@@ -32,16 +36,25 @@ import torch
 
 from ..api import resolve_device
 from ..data.loader import build_dataloader
-from ..models.head_losses import column_proposal_loss, head_hparams
+from ..models.head_losses import (column_proposal_loss, head_hparams,
+                                  segmentor_loss)
 from ..models.nets import build_model
 from .checkpoint import load_model, load_network_filtered, save_model
-from .state import create_train_state, is_mono_batch, make_train_step
+from .state import (create_train_state, eval_step, is_mono_batch,
+                    make_train_step)
 
 TRAIN_BATCH_KEYS = ("proj", "prop_ext", "prop_coor", "prop_offset",
                     "prop_offset_mask", "prop_bi_seg", "prop_inst",
                     "prop_best", "lc_orient",
                     "semantic_label_raw", "endp_map", "mask", "label",
                     "points", "points_mask")
+KLANE_HEADS = ("RowSharNotReducRef", "GridSeg")
+# (net, head) pairs the Runner trains and validates; the Segmentor has no
+# head
+PORTED = {("Detector1stage", "ColumnProposal2"),
+          ("Detector1stage", "RowSharNotReducRef"),
+          ("Detector1stage", "GridSeg"), ("Detector", "RowSharNotReducRef"),
+          ("Detector", "GridSeg"), ("Segmentor", None)}
 
 
 class Runner:
@@ -70,8 +83,9 @@ class Runner:
         os.makedirs(self.log_dir, exist_ok=True)
         self.use_lidar = bool(cfg.get("use_lidar", False))
 
-        head_type = cfg.heads.type if "heads" in cfg else None
-        if cfg.net.type != "Detector1stage" or head_type != "ColumnProposal2":
+        self.head_type = head_type = cfg.heads.type \
+            if "heads" in cfg and cfg.net.type != "Segmentor" else None
+        if (cfg.net.type, head_type) not in PORTED:
             raise NotImplementedError(
                 f"training {cfg.net.type}/{head_type} is not ported to "
                 f"lanemapping_tpu_torch yet")
@@ -80,10 +94,7 @@ class Runner:
             model = model.to(memory_format=torch.channels_last)
         self.model = model
         self.state = create_train_state(model, cfg)
-
-        hp = head_hparams(cfg)
-        self._loss_fn = lambda out, batch: column_proposal_loss(out, batch,
-                                                                hp)
+        self._loss_fn = self._build_loss(cfg, head_type)
         self.compute_dtype = torch.bfloat16 \
             if cfg.get("train_compute_dtype") == "bfloat16" else None
         self.train_step = make_train_step(self._loss_fn, self.compute_dtype,
@@ -94,6 +105,28 @@ class Runner:
             load_model(cfg.load_from, self.state)
         elif cfg.get("finetune_from"):
             load_network_filtered(cfg.finetune_from, self.state)
+
+    @staticmethod
+    def _build_loss(cfg, head_type):
+        """The loss of the net and head (the JAX Runner's dispatch,
+        `runner.py:70-90` there)."""
+        if cfg.net.type == "Segmentor":
+            return segmentor_loss
+        if head_type == "RowSharNotReducRef":
+            from ..models.row_head import row_shar_loss
+            n_lanes, row_size = cfg.number_lanes, cfg.heads.row_size
+            lam = cfg.heads.get("lambda_cls", 1.0)
+            return lambda out, batch: row_shar_loss(
+                out, batch, n_lanes=n_lanes, row_size=row_size,
+                lambda_cls=lam)
+        if head_type == "GridSeg":
+            from ..models.row_head import grid_seg_loss
+            n_classes = cfg.heads.num_classes
+            ds_type = cfg.get("dataset_type", "LaserLane")
+            return lambda out, batch: grid_seg_loss(
+                out, batch, num_classes=n_classes, dataset_type=ds_type)
+        hp = head_hparams(cfg)
+        return lambda out, batch: column_proposal_loss(out, batch, hp)
 
     def resume_latest(self) -> bool:
         """Crash recovery: restore the newest checkpoint under
@@ -186,10 +219,34 @@ class Runner:
         decode keys the host postprocess reads, still on the device."""
         from ..decode.lane_decode import decode_lanes, host_decode_view
 
-        self.model.eval()
-        with torch.inference_mode():
-            return host_decode_view(decode_lanes(
-                self.model(self._eval_input(batch)), self.cfg))
+        return eval_step(self.model, self._eval_input(batch),
+                         lambda out: host_decode_view(decode_lanes(
+                             out, self.cfg)))
+
+    def _eval_grid(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """Forward + the KLane head's device decode: RowSharNotReducRef's
+        masked argmax maps (`decode_row_lanes`), GridSeg's raw ``conf`` and
+        ``cls``."""
+        from ..decode.row_decode import decode_row_lanes
+
+        def decode(out):
+            if self.head_type == "RowSharNotReducRef":
+                return decode_row_lanes(out, self.cfg.number_lanes)
+            return {"conf": out["conf"], "cls": out["cls"]}
+        return eval_step(self.model, self._eval_input(batch), decode)
+
+    def _eval_seg(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """Forward + `segmentor_infer`: ``seg`` and ``endp`` maps."""
+        from ..decode.seg_infer import segmentor_infer
+
+        return eval_step(self.model, self._eval_input(batch),
+                         lambda out: segmentor_infer(
+                             out, seg_thre=self.cfg.get("seg_thre", 0.1),
+                             n_lanes=self.cfg.number_lanes))
+
+    @staticmethod
+    def _host(dec: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        return {k: v.cpu().numpy() for k, v in dec.items()}
 
     # -- loops --------------------------------------------------------------
     def train(self, max_iters: Optional[int] = None):
@@ -217,13 +274,66 @@ class Runner:
         if loader is None:
             split = cfg.dataset.get("val") or cfg.dataset.test
             loader = build_dataloader(split, cfg, is_train=False)
-        metrics = self._validate_lanes(loader, max_batches)
-        metric = metrics["composite"]
+        if cfg.net.type == "Segmentor":
+            metrics = self._validate_seg(loader, max_batches)
+        elif self.head_type in KLANE_HEADS:
+            metrics = self._validate_grid(loader, max_batches)
+        else:
+            metrics = self._validate_lanes(loader, max_batches)
+        metric = metrics.get("composite", metrics.get("val_loss_neg", 0.0))
         self._log("val", {"epoch": epoch, **metrics})
         if metric > self.best_metric:
             self.best_metric = metric
             save_model(self.log_dir, self.state, "best")
         return metrics
+
+    def _validate_seg(self, loader, max_batches) -> Dict:
+        """Segmentor validation (`runner.py:465-491` there): per-tile
+        binary segmentation F1 (10 px buffer) and endpoint F1 (20 px)."""
+        from ..utils.metrics import (eval_metric_endp_detector,
+                                     eval_metric_line_segmentor)
+        seg_scores, endp_scores = [], []
+        for i, batch in enumerate(loader):
+            if max_batches is not None and i >= max_batches:
+                break
+            pred = self._host(self._eval_seg(batch))
+            for b in range(batch["proj"].shape[0]):
+                seg_scores.append(eval_metric_line_segmentor(
+                    pred["seg"][b], batch["mask"][b], buffer_px=10))
+                endp_scores.append(eval_metric_endp_detector(
+                    np.argwhere(pred["endp"][b] > 0),
+                    batch["endp_map"][b], r_thre=20))
+        seg_f1 = float(np.mean([s["f1"] for s in seg_scores])) \
+            if seg_scores else 0.0
+        endp_f1 = float(np.mean([s["f1"] for s in endp_scores])) \
+            if endp_scores else 0.0
+        return {"seg_f1": seg_f1, "endp_f1": endp_f1,
+                "composite": 0.9 * seg_f1 + 0.1 * endp_f1}
+
+    def _validate_grid(self, loader, max_batches) -> Dict:
+        """KLane grid validation (reference `runner.py:257-322`): buffered
+        confidence F1 of the predicted lane grid against ``label != 255``
+        over the first ``heads.row_size`` columns (GridSeg, which has no
+        ``row_size``: the whole label grid)."""
+        from ..utils.metrics import grid_measures
+        cfg = self.cfg
+        f1s = []
+        for i, batch in enumerate(loader):
+            if max_batches is not None and i >= max_batches:
+                break
+            dec = self._host(self._eval_grid(batch))
+            if self.head_type == "RowSharNotReducRef":
+                conf_pred = dec["conf"]
+            else:
+                conf_pred = (dec["conf"] > cfg.get("conf_thr", 0.3)).astype(
+                    np.float64)
+            row_size = int(cfg.heads.get("row_size", batch["label"].shape[2]))
+            conf_label = (batch["label"][:, :, :row_size] != 255).astype(
+                np.float64)
+            for b in range(conf_pred.shape[0]):
+                f1s.append(grid_measures(conf_label[b], conf_pred[b])["f1"])
+        f1 = float(np.mean(f1s)) if f1s else 0.0
+        return {"conf_f1": f1, "composite": f1}
 
     def _validate_lanes(self, loader, max_batches) -> Dict:
         """Lane-coordinate validation (reference `runner.py:223-353`),
@@ -321,25 +431,108 @@ class Runner:
                          max_batches: Optional[int] = None,
                          write_view: bool = False) -> None:
         """Inference (reference `runner.py:690-868`): decode and
-        postprocess every tile, one lane JSON per tile.  The overlay PNGs
-        (``write_view``) wait for `utils/vis_utils.py`."""
+        postprocess every tile, one lane JSON per tile, and with
+        ``write_view`` an overlay PNG of the lanes and endpoints."""
         from ..decode.postprocess import lane_maps_from_decode
-        from ..tools.export_lanes import lane_records
 
-        if write_view:
-            raise NotImplementedError(
-                "write_view needs utils/vis_utils.py, not ported to "
-                "lanemapping_tpu_torch yet")
         os.makedirs(out_dir, exist_ok=True)
         for i, batch in enumerate(loader):
             if max_batches is not None and i >= max_batches:
                 break
-            dec = {k: v.cpu().numpy()
-                   for k, v in self._eval_decode(batch).items()}
-            maps = lane_maps_from_decode(dec, self.cfg)
-            names = batch.get("image_name",
-                              [f"b{i}_{j}" for j in
-                               range(len(maps["cls_offset_smooth"]))])
-            for j, name in enumerate(names):
-                with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
-                    json.dump(lane_records(maps["cls_offset_smooth"][j]), f)
+            maps = lane_maps_from_decode(self._host(self._eval_decode(batch)),
+                                         self.cfg)
+            for j, name in enumerate(_tile_names(batch, i)):
+                _write_lanes(out_dir, name, maps["cls_offset_smooth"][j])
+                if write_view:
+                    from ..utils.vis_utils import render_lane_overlays
+                    _write_png(out_dir, f"{name}_overlay.png",
+                               render_lane_overlays(
+                                   batch["proj"][j],
+                                   maps["cls_offset_smooth"][j],
+                                   maps["endp_by_cls"][j]))
+
+    def infer_grid_and_export(self, loader, out_dir: str,
+                              max_batches: Optional[int] = None,
+                              write_view: bool = False) -> None:
+        """KLane export driver (reference ``infer_lane``, `runner.py:473-604`):
+        decode the row or grid head, smooth each lane's vertices, one lane
+        JSON per tile, and with ``write_view`` an overlay PNG and the RGB
+        class map (`:552-564` ``rgb_conf_cls_idx``)."""
+        from ..decode.row_decode import row_lane_maps
+
+        os.makedirs(out_dir, exist_ok=True)
+        for i, batch in enumerate(loader):
+            if max_batches is not None and i >= max_batches:
+                break
+            maps = row_lane_maps(self._host(self._eval_grid(batch)),
+                                 self.cfg, self.head_type)
+            for j, name in enumerate(_tile_names(batch, i)):
+                _write_lanes(out_dir, name, maps["cls_offset_smooth"][j])
+                if write_view:
+                    from ..utils.vis_utils import (render_lane_overlays,
+                                                   rgb_cls_map)
+                    _write_png(out_dir, f"{name}_overlay.png",
+                               render_lane_overlays(
+                                   batch["proj"][j],
+                                   maps["cls_offset_smooth"][j]))
+                    _write_png(out_dir, f"{name}_grid.png",
+                               rgb_cls_map(maps["cls_idx"][j]))
+
+    def infer_segmentor_and_export(self, loader,
+                                   out_dir: Optional[str] = None,
+                                   max_batches: Optional[int] = None,
+                                   write_view: bool = False) -> Dict:
+        """Segmentor driver (reference `runner.py:945-1036`): per-class
+        semantic and binary geometry precision, recall and F1, counts
+        pooled over the split, and with ``write_view`` the segmentation and
+        skeleton overlay PNGs (`postprojector.py:221-261`)."""
+        from ..decode.seg_infer import segmentor_displays
+        from ..utils.metrics import eval_metric_line_segmentor, \
+            prf_from_counts
+
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+        counts = {k: {"tp": 0, "n_pred": 0, "dg": 0, "n_gt": 0}
+                  for k in ("coor", "semantic")}
+        buff = self.cfg.get("validate_buffer", 10)
+        for i, batch in enumerate(loader):
+            if max_batches is not None and i >= max_batches:
+                break
+            pred = self._host(self._eval_seg(batch))
+            names = _tile_names(batch, i)
+            for b in range(batch["proj"].shape[0]):
+                for key, bi in (("semantic", False), ("coor", True)):
+                    m = eval_metric_line_segmentor(
+                        pred["seg"][b], batch["mask"][b], bi_seg=bi,
+                        semantics=2, buffer_px=buff)
+                    for k in counts[key]:
+                        counts[key][k] += m[k]
+                if write_view and out_dir:
+                    seg_img, skel_img = segmentor_displays(
+                        batch["proj"][b], pred["seg"][b], pred["endp"][b])
+                    _write_png(out_dir, f"{names[b]}_segmentor.png", seg_img)
+                    _write_png(out_dir, f"{names[b]}_seg_skeleton.png",
+                               skel_img)
+        metrics = {}
+        for key, c in counts.items():
+            acc, rec, f1 = prf_from_counts(**c)
+            metrics.update({f"{key}_conf_prec": acc, f"{key}_conf_rec": rec,
+                            f"{key}_conf_f1": f1})
+        self._log("segmentor_infer", metrics)
+        return metrics
+
+
+def _tile_names(batch: Dict, i: int):
+    return batch.get("image_name", [f"b{i}_{j}" for j in
+                                    range(len(batch["proj"]))])
+
+
+def _write_lanes(out_dir: str, name: str, ply: np.ndarray) -> None:
+    from ..tools.export_lanes import lane_records
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+        json.dump(lane_records(ply), f)
+
+
+def _write_png(out_dir: str, name: str, img: np.ndarray) -> None:
+    from PIL import Image
+    Image.fromarray(img).save(os.path.join(out_dir, name))

@@ -6,7 +6,12 @@ objects: the module (float32 master parameters and BatchNorm buffers),
 the optimizer, the LR scheduler, the step count, and the
 ``torch.Generator`` that dropout draws from.
 
-``make_train_step`` follows the JAX step's semantics:
+``eval_step`` is the JAX package's eval step (``make_eval_step``): the
+forward in eval mode, in the weights' dtype (float32 in the Runner), with
+an optional device decode of the outputs.
+
+``make_train_step`` follows the JAX step's semantics, whatever keys the
+net's output dict holds (the loss function reads them):
 
 - **Mixed precision as flax computes it**: with a ``compute_dtype`` the
   float32 master parameters are cast inside the differentiated function
@@ -86,6 +91,16 @@ def model_input(batch: Dict, use_lidar: bool = False,
     if proj.shape[-1] == 1:
         proj = proj.expand(*proj.shape[:-1], 3)
     return proj.contiguous()
+
+
+def eval_step(model: torch.nn.Module, inp,
+              decode: Optional[Callable[[Dict], Dict]] = None) -> Dict:
+    """``model(inp)`` in eval mode without autograd, then ``decode`` of
+    the output dict (if given), all on the model's device."""
+    model.eval()
+    with torch.inference_mode():
+        out = model(inp)
+        return decode(out) if decode is not None else out
 
 
 def make_train_step(loss_fn: Callable[[Dict, Dict], Dict],

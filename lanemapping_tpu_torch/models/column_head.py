@@ -36,6 +36,7 @@ from ..ops.interp import (_interp_matrix_np, _upsample_then_pool_np,
                           resize_bilinear_ac)
 from ..registry import HEADS
 from .norm import BatchNorm1d, BatchNorm2d
+from .vit import correlator_out_channels
 
 BN_MOMENTUM = 0.1  # flax momentum 0.9
 BN_EPS = 1e-5
@@ -174,14 +175,7 @@ def build_column_proposal2(cfg=None, dim_feat=8, row_size=144, dim_shared=100,
             if cfg.get(flag, False):
                 raise NotImplementedError(
                     f"cfg.{flag} is not ported to lanemapping_tpu_torch yet")
-    # correlator output channels: VitSegNet un-patches dim/(p*p) channels;
-    # without a correlator the head reads the encoder's fea_down
-    in_ch = cfg.get("featuremap_out_channel", 64) if cfg is not None else 8
-    if cfg is not None and cfg.get("vit_seg", True) and "backbone" in cfg:
-        bb = cfg.backbone
-        p = bb.get("patch_h_size", 8)
-        in_ch = bb.get("output_channels", 8) \
-            if bb.get("is_with_shared_mlp", False) else bb["dim"] // (p * p)
+    in_ch = correlator_out_channels(cfg) if cfg is not None else 8
     return ColumnProposalHead(
         dim_feat=dim_feat, row_size=row_size, dim_shared=dim_shared,
         num_prop=num_prop, prop_width=prop_width,

@@ -9,7 +9,7 @@ normalisation, quirks included: the semantic term is divided by the pixel
 count ``S*S*64`` and not by batch; ``safe_div`` returns 0 for a batch with
 no valid vertex; the endpoint focal weights positives by ``endp_pos_w`` and
 negatives by ``endp_neg_w``.  The losses run in float32 whatever the
-outputs' dtype.  ``segmentor_loss`` waits for the Segmentor.
+outputs' dtype.  ``segmentor_loss`` is the Segmentor's pretraining loss.
 """
 
 from __future__ import annotations
@@ -236,6 +236,28 @@ def column_proposal_loss(out: Dict, batch: Dict, hp) -> Dict:
             "semantic_seg_loss": semantic_loss,
         },
     }
+
+
+def segmentor_loss(out: Dict, batch: Dict) -> Dict:
+    """Segmentor pretraining loss (reference `postprojector.py:84-109`):
+    the semantic CE over every pixel, and a focal endpoint term weighted
+    10x the heatmap on its positives and 0.1 elsewhere, counted only for
+    tiles with more than one unit of heatmap."""
+    EPS6 = 1e-6
+    seg_logits = out["semantic_seg"].float()  # [B,H,W,3]
+    b, f_h, f_w, _ = seg_logits.shape
+    seg_ce = cross_entropy_with_int_labels(seg_logits, batch["mask"])
+    seg_loss = torch.sum(seg_ce) / (b * f_h * f_w)
+
+    lb_endp = _heatmap_f32(batch["endp_map"])
+    has_endp = (torch.sum(lb_endp, dim=(1, 2)) > 1.0).float()
+    w_endp = torch.where(lb_endp > EPS6, lb_endp * 10.0, 0.1)
+    tgt = (lb_endp > EPS6).float()
+    focal = sigmoid_focal_loss(out["endp_est"][..., 0].float(), tgt)
+    endp_loss = 50.0 * torch.sum(w_endp * focal * has_endp[:, None, None]) \
+        / (f_h * f_w)
+    return {"loss": seg_loss + endp_loss,
+            "loss_stats": {"seg_loss": seg_loss, "endp_loss": endp_loss}}
 
 
 def head_hparams(cfg) -> Dict:

@@ -1,10 +1,15 @@
-"""Composition root Detector1stage (port of `lanemapping_tpu/models/nets.py`,
-reference `net/detector1stage.py:10-67`): pcencoder -> (optional) global
-correlator -> lane head.  The input is an image tile, or, for the LiDAR
-encoder, a raw-point dict ``{"points": [B,N,4], "points_mask": [B,N]}``
-(`nets.py:31-34` there).  The Segmentor waits for a later slice.
+"""Composition roots Detector1stage and Segmentor (port of
+`lanemapping_tpu/models/nets.py`, reference `net/detector1stage.py:10-67`,
+`net/segmentor.py:14-51`): pcencoder -> (optional) global correlator ->
+lane head, or the encoder alone for segmentation pretraining.  The input is
+an image tile, or, for the LiDAR encoder, a raw-point dict
+``{"points": [B,N,4], "points_mask": [B,N]}`` (`nets.py:31-34` there).
+The KLane heads (RowSharNotReducRef, GridSeg) read the correlator map only
+(reference `detector1stage.py:46-47`); the encoder still runs whole, so in
+training its semantic pyramids' statistics move as in flax.  The legacy
+2-argument Detector is in `models/legacy.py`.
 
-``Detector1stage.forward`` keeps the JAX package's layout at its boundary:
+``Detector1stage.forward`` and ``Segmentor.forward`` keep the JAX package's layout at its boundary:
 the tile comes in NHWC [B, H, W, 3] and the image-shaped outputs
 (``semantic_seg``, ``endp_est``, ``orient``, ``endpoint``) go out NHWC.  A
 contiguous NHWC tile is a channels-last NCHW tensor, so the permutes are
@@ -19,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from ..registry import NET, build_backbone, build_heads, build_pcencoder
+from .row_head import GridSeg, PerLaneConvHead, RowSharNotReducRef
 
 _IMAGE_KEYS = ("orient", "endpoint")
 
@@ -43,13 +49,34 @@ class Detector1stage(nn.Module):
                 proj.permute(0, 3, 1, 2))
         if self.vit_seg and self.backbone is not None:
             fea = self.backbone(fea)
-        out = self.heads(fea, fea_up, endp_est)
+        if isinstance(self.heads, (RowSharNotReducRef, GridSeg)):
+            out = self.heads(fea)
+        else:
+            out = self.heads(fea, fea_up, endp_est)
         for k in _IMAGE_KEYS:
             if k in out:
                 out[k] = out[k].permute(0, 2, 3, 1)
         out["semantic_seg"] = bi_seg.permute(0, 2, 3, 1)
         out["endp_est"] = endp_est.permute(0, 2, 3, 1)
         return out
+
+
+class Segmentor(nn.Module):
+    def __init__(self, pcencoder: nn.Module):
+        super().__init__()
+        self.pcencoder = pcencoder
+
+    def forward(self, proj):
+        """[B, H, W, 3] tile -> ``semantic_seg`` [B,H,W,3] and ``endp_est``
+        [B,H,W,1] logits."""
+        _, _, bi_seg, endp_est = self.pcencoder(proj.permute(0, 3, 1, 2))
+        return {"semantic_seg": bi_seg.permute(0, 2, 3, 1),
+                "endp_est": endp_est.permute(0, 2, 3, 1)}
+
+
+@NET.register_module(name="Segmentor")
+def _build_segmentor(head_type=None, loss_type=None, cfg=None):
+    return Segmentor(pcencoder=build_pcencoder(cfg))
 
 
 @NET.register_module(name="Detector1stage")
@@ -62,12 +89,15 @@ def _build_detector1stage(head_type=None, loss_type=None, cfg=None):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every parameter from ``generator`` (seeded random weights):
-    PyTorch's default uniform ranges for convolutions and linears (bound
-    1/sqrt(fan_in)), unit scale and zero shift for the norms, unit normal
-    for embeddings.  BatchNorm running statistics stay at (0, 1)."""
+    PyTorch's default uniform ranges for convolutions, linears and the
+    lane-batched linears of ``PerLaneConvHead`` (bound 1/sqrt(fan_in)),
+    unit scale and zero shift for the norms, unit normal for the position
+    and lane embeddings.  BatchNorm running statistics stay at (0, 1)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            if isinstance(m, PerLaneConvHead):
+                m.reset_parameters(generator)
+            elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 bound = m.weight[0].numel() ** -0.5
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
@@ -77,7 +107,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         for name, p in model.named_parameters():
-            if name.endswith("pos_embedding"):
+            if name.endswith(("pos_embedding", "lane_emb")):
                 p.normal_(generator=generator)
     return model
 

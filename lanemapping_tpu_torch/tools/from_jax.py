@@ -7,7 +7,9 @@ reference's torch names, so the result loads with ``load_state_dict``, and
 a reference ``.pth`` loads the same way without this module.
 
 The LiDAR encoder has no torch reference (the reference's spconv encoder
-has no dense counterpart): its torch names are the flax module names.
+has no dense counterpart), nor have the MixSegNet correlator, the legacy
+ResNet projector and the KLane heads here: their torch names are the flax
+module names.  ``PerLaneConvHead`` keeps flax's ``[N, I, O]`` weights.
 
 Layouts: flax conv HWIO -> torch OIHW; Dense [I,O] -> Linear [O,I];
 Dense [I,O] -> Conv1d(k=1) [O,I,1]; BatchNorm scale/bias + batch_stats
@@ -123,23 +125,56 @@ def _postprojector2_rules(resnet_layers) -> list:
     return R
 
 
-def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
-                pcencoder="PostProjector2") -> list:
-    """(torch_key, flax_path, inverse layout) triples for Detector1stage
-    with PostProjector2 or LidarEncoder + VitSegNet + ColumnProposal2 (live
-    path).  Rules whose flax path is absent (a missing trunk stage, an
-    unused lateral, a projection the encoder does not have) are skipped by
-    ``params_from_jax``."""
-    R = _lidar_encoder_rules() if pcencoder == "LidarEncoder" \
-        else _postprojector2_rules(resnet_layers)
-    bb = "backbone"
-    R += [(f"{bb}.to_patch_embedding.1.weight", f"{bb}/patch_embed/kernel",
-           _dense_inv),
-          (f"{bb}.to_patch_embedding.1.bias", f"{bb}/patch_embed/bias", None),
-          (f"{bb}.pos_embedding", f"{bb}/pos_embedding", None)]
-    R += _transformer_rules(f"{bb}.transformer", f"{bb}/transformer",
-                            vit_depth)
+def _conv_rules(t: str, j: str, bias: bool = True) -> list:
+    R = [(f"{t}.weight", f"{j}/kernel", _conv_inv)]
+    return R + [(f"{t}.bias", f"{j}/bias", None)] if bias else R
 
+
+def _dense_rules(t: str, j: str) -> list:
+    return [(f"{t}.weight", f"{j}/kernel", _dense_inv),
+            (f"{t}.bias", f"{j}/bias", None)]
+
+
+def _ln_rules(t: str, j: str) -> list:
+    return [(f"{t}.weight", f"{j}/scale", None),
+            (f"{t}.bias", f"{j}/bias", None)]
+
+
+def _resnet_projector_rules(resnet_layers) -> list:
+    """ResNetProjector (the legacy ``PostProjector``)."""
+    R = _conv_rules("pcencoder.conv1", "pcencoder/conv1", bias=False)
+    R += [("pcencoder.bn1", "pcencoder/bn1", "bn")]
+    for li, nb in enumerate(resnet_layers, start=1):
+        R += _resnet_block_rules(f"pcencoder.layer{li}", f"pcencoder/layer{li}",
+                                 nb)
+    return R + _conv_rules("pcencoder.out_conv", "pcencoder/out_conv",
+                           bias=False)
+
+
+def _vit_rules(depth: int) -> list:
+    bb = "backbone"
+    R = [(f"{bb}.to_patch_embedding.1.weight", f"{bb}/patch_embed/kernel",
+          _dense_inv),
+         (f"{bb}.to_patch_embedding.1.bias", f"{bb}/patch_embed/bias", None),
+         (f"{bb}.pos_embedding", f"{bb}/pos_embedding", None)]
+    R += _transformer_rules(f"{bb}.transformer", f"{bb}/transformer", depth)
+    return R + _conv_rules(f"{bb}.shared_mlp", f"{bb}/shared_mlp")
+
+
+def _mixsegnet_rules(depth: int) -> list:
+    bb = "backbone"
+    R = _dense_rules(f"{bb}.patch_embed", f"{bb}/patch_embed")
+    for i in range(depth):
+        t, j = f"{bb}.mixers.{i}", f"{bb}/mixer{i}"
+        R += _ln_rules(f"{t}.norm1", f"{j}/norm1")
+        R += _ln_rules(f"{t}.norm2", f"{j}/norm2")
+        for fc in ("token_fc1", "token_fc2", "chan_fc1", "chan_fc2"):
+            R += _dense_rules(f"{t}.{fc}", f"{j}/{fc}")
+    R += _ln_rules(f"{bb}.norm", f"{bb}/norm")
+    return R + _conv_rules(f"{bb}.shared_mlp", f"{bb}/shared_mlp")
+
+
+def _column_proposal_rules() -> list:
     hd = "heads"
     seq = [
         ("endpoint.0", "endpoint_conv1", "conv"),
@@ -154,11 +189,10 @@ def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
         ("orient.2", "orient_conv2", "conv"),
         ("bi_seg_proposal", "bi_seg_proposal", "conv"),
     ]
+    R = []
     for t_name, j_name, kind in seq:
         if kind == "conv":
-            R += [(f"{hd}.{t_name}.weight", f"{hd}/{j_name}/kernel",
-                   _conv_inv),
-                  (f"{hd}.{t_name}.bias", f"{hd}/{j_name}/bias", None)]
+            R += _conv_rules(f"{hd}.{t_name}", f"{hd}/{j_name}")
         else:
             R += [(f"{hd}.{t_name}", f"{hd}/{j_name}", "bn")]
     R += [(f"{hd}.proposal_confidence.1.weight",
@@ -173,6 +207,55 @@ def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
               (f"{hd}.{head}.2.weight", f"{hd}/{head}_fc2/kernel",
                _conv1d_dense_inv),
               (f"{hd}.{head}.2.bias", f"{hd}/{head}_fc2/bias", None)]
+    return R
+
+
+def _row_shar_rules(depth: int) -> list:
+    """RowSharNotReducRef: four PerLaneConvHeads ([N, I, O] weights as
+    they are), the lane tokens and the lane correlator."""
+    hd = "heads"
+    R = []
+    for head in ("ext1", "cls1", "ext2", "cls2"):
+        R += [(f"{hd}.{head}.{w}", f"{hd}/{head}/{w}", None)
+              for w in ("w1", "b1", "w2", "b2")]
+        R += [(f"{hd}.{head}.bn", f"{hd}/{head}/bn", "bn")]
+    R += _dense_rules(f"{hd}.to_token", f"{hd}/to_token")
+    R += [(f"{hd}.lane_emb", f"{hd}/lane_emb", None)]
+    R += _transformer_rules(f"{hd}.lane_correlator", f"{hd}/lane_correlator",
+                            depth)
+    R += _ln_rules(f"{hd}.corr_norm", f"{hd}/corr_norm")
+    return R + _dense_rules(f"{hd}.from_token", f"{hd}/from_token")
+
+
+_HEAD_CONVS = {"GridSeg": ("conf_fc1", "conf_fc2", "cls_fc1", "cls_fc2"),
+               "PixelSeg": ("cls_fc0", "cls_fc1", "cls_fc2")}
+
+
+def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
+                pcencoder="PostProjector2", backbone="VitSegNet",
+                head="ColumnProposal2", head_depth=1) -> list:
+    """(torch_key, flax_path, inverse layout) triples for a net of the
+    given encoder, correlator (``None`` for none) and head (``None`` for
+    the Segmentor); ``vit_depth`` is the correlator's depth and
+    ``head_depth`` the row head's lane-correlator depth.  Rules whose flax
+    path is absent (a missing trunk stage, an unused lateral, a projection
+    the encoder does not have, a shared MLP the correlator does not use)
+    are skipped by ``params_from_jax``."""
+    R = {"LidarEncoder": _lidar_encoder_rules,
+         "PostProjector": lambda: _resnet_projector_rules(resnet_layers),
+         "PostProjector2": lambda: _postprojector2_rules(resnet_layers),
+         }[pcencoder]()
+    if backbone == "VitSegNet":
+        R += _vit_rules(vit_depth)
+    elif backbone == "MixSegNet":
+        R += _mixsegnet_rules(vit_depth)
+    if head == "ColumnProposal2":
+        R += _column_proposal_rules()
+    elif head == "RowSharNotReducRef":
+        R += _row_shar_rules(head_depth)
+    elif head in _HEAD_CONVS:
+        for name in _HEAD_CONVS[head]:
+            R += _conv_rules(f"heads.{name}", f"heads/{name}")
     return R
 
 
@@ -212,13 +295,18 @@ def params_from_jax(params: Dict, batch_stats: Dict, rules=None
 
 
 def rules_for(cfg) -> list:
-    """``build_rules`` sized to a config's encoder, trunk and correlator
-    depth."""
+    """``build_rules`` for a config: its net, encoder and trunk, correlator
+    and its depth, head and its lane-correlator depth."""
     from ..models.resnet_fpn import RESNET_LAYERS
+    segmentor = cfg.net.type == "Segmentor"
+    has_bb = "backbone" in cfg and not segmentor
     return build_rules(
         resnet_layers=RESNET_LAYERS[cfg.pcencoder.get("resnet", "resnet34")],
-        vit_depth=cfg.backbone.get("depth", 3) if "backbone" in cfg else 0,
-        pcencoder=cfg.pcencoder.type)
+        vit_depth=cfg.backbone.get("depth", 3) if has_bb else 0,
+        pcencoder=cfg.pcencoder.type,
+        backbone=cfg.backbone.type if has_bb else None,
+        head=None if segmentor else cfg.heads.type,
+        head_depth=cfg.heads.get("tr_depth", 1) if not segmentor else 0)
 
 
 def load_jax_weights(model: torch.nn.Module, params: Dict, batch_stats: Dict,

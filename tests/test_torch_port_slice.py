@@ -142,7 +142,9 @@ def test_import_loads_no_jax_and_no_jax_package():
         "       'tools.stream_map', 'ops.losses', 'models.norm',\n"
         "       'models.head_losses', 'engine.optimizer',\n"
         "       'engine.checkpoint', 'engine.runner', 'utils.metrics',\n"
-        "       'utils.skeleton', 'tools.train']\n"
+        "       'utils.skeleton', 'tools.train', 'models.legacy',\n"
+        "       'models.row_head', 'decode.row_decode', 'decode.seg_infer',\n"
+        "       'utils.vis_utils', 'tools.infer']\n"
         "missing = [m for m in new\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
@@ -151,6 +153,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "                                    'optax', 'orbax',\n"
         "                                    'lanemapping_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'cv2' not in sys.modules  # drawing imports it lazily\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -31,7 +31,8 @@ def random_variables(module, example_args, seed):
     ``module.init(key, *example_args, train=False)``: kernels ~ N(0,
     1/fan_in), biases ~ N(0, 0.1^2), norm scales ~ U(0.8, 1.2), BatchNorm
     running means ~ N(0, 0.1^2) and variances ~ U(0.6, 1.4), embeddings
-    ~ N(0, 1)."""
+    ~ N(0, 1), the lane-batched ``[N, I, O]`` weights of the row head's
+    ``PerLaneConvHead`` ~ N(0, 1/I)."""
     shapes = jax.eval_shape(
         lambda k: module.init(k, *example_args, train=False),
         jax.random.PRNGKey(0))
@@ -47,8 +48,10 @@ def random_variables(module, example_args, seed):
             v = rng.uniform(0.8, 1.2, shape)
         elif leaf == "var":
             v = rng.uniform(0.6, 1.4, shape)
-        elif leaf == "pos_embedding":
+        elif leaf in ("pos_embedding", "lane_emb"):
             v = rng.normal(0.0, 1.0, shape)
+        elif leaf in ("w1", "w2"):
+            v = rng.normal(0.0, shape[1] ** -0.5, shape)
         else:  # bias, mean
             v = rng.normal(0.0, 0.1, shape)
         return v.astype(np.float32)
@@ -67,6 +70,61 @@ def tiny_models(seed=0, endp_mode=None):
     cfg_j, cfg_t = configs()
     if endp_mode:
         cfg_j.heads.endp_mode = cfg_t.heads.endp_mode = endp_mode
+    img = cfg_j.list_img_size_xy[0]
+    jmodel = lm.build_model(cfg_j)
+    variables = random_variables(jmodel, (jnp.zeros((1, img, img, 3)),),
+                                 seed)
+    tmodel = lmt.build_model(cfg_t)
+    load_jax_weights(tmodel, variables["params"], variables["batch_stats"],
+                     cfg_t)
+    return jmodel, variables, tmodel, cfg_j, cfg_t
+
+
+# the four configs of the KLane / segmentation / MLP-Mixer slice, shrunk to
+# tiny widths: 192 px tiles (S = 24), ResNet-18 trunks, a one-block
+# correlator of width 128 (2 channels after the 8x8 un-patch), float32
+ZOO_CONFIGS = {
+    "rowref": "Proj28_GFC-T3_RowRef_82_73_laser.py",
+    "gridseg": "Proj28_GFC-T3_Seg_82_11_laser.py",
+    "fpnseg": "Proj_FPN_Seg.py",
+    "mixseg": "Proj_polyline_fpn_mixseg_vertex.py",
+}
+_TINY_VIT = {"backbone.image_size": 24, "backbone.dim": 128,
+             "backbone.depth": 1, "backbone.heads": 4,
+             "backbone.dim_head": 32}
+ZOO_TINY = {
+    "rowref": {**_TINY_VIT, "heads.dim_feat": 2, "heads.row_size": 24,
+               "heads.dim_shared": 32, "heads.dim_token": 64,
+               "heads.tr_heads": 4, "heads.tr_dim_head": 16,
+               "heads.tr_mlp_dim": 128},
+    "gridseg": {**_TINY_VIT, "backbone.output_channels": 16,
+                "heads.num_1": 16, "heads.num_2": 32},
+    "fpnseg": {},
+    "mixseg": {"backbone.image_size": 24, "backbone.dim": 128,
+               "backbone.depth": 1, "heads.row_size": 24,
+               "heads.num_prop": 12, "heads.dim_shared": 32},
+}
+ZOO_COMMON = {"list_img_size_xy": [192, 192], "pcencoder.resnet": "resnet18",
+              "batch_size": 2, "workers": 0, "train_compute_dtype": "float32"}
+
+
+def zoo_configs(name, **over):
+    """(JAX Config, port Config) of one of the slice's configs at tiny
+    widths, with dotted ``over`` merged into both."""
+    cfgs = configs(os.path.join(REPO, "configs", ZOO_CONFIGS[name]))
+    for cfg in cfgs:
+        cfg.merge_from_dict({**ZOO_COMMON, **ZOO_TINY[name], **over})
+    return cfgs
+
+
+def zoo_models(name, seed=0, **over):
+    """(JAX net, its variables, port net with the same weights, JAX cfg,
+    port cfg) of ``zoo_configs(name, **over)``."""
+    import lanemapping_tpu as lm
+    import lanemapping_tpu_torch as lmt
+    from lanemapping_tpu_torch.tools.from_jax import load_jax_weights
+
+    cfg_j, cfg_t = zoo_configs(name, **over)
     img = cfg_j.list_img_size_xy[0]
     jmodel = lm.build_model(cfg_j)
     variables = random_variables(jmodel, (jnp.zeros((1, img, img, 3)),),
