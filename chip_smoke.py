@@ -98,11 +98,35 @@ or outside a checkout.  Phases, each of which fails the run:
    widths, float32 with TF32 off, from the same seeded weights: the
    forward's outputs within rel-max 2e-3, the same decoded maps and lane
    records, one train step's loss terms within rel 1e-4.
+15. the 3-D lane map: transform params for phase 7's tiles (written after
+   the dataset, from their own seeds), then ``tools/stream_map
+   --split infer_only --params-dir`` on the LiDAR config and
+   ``LaneMapper(flagship, device="cuda").map_directory(params_dir=...)``
+   over the same 16 tiles: every lifted vertex 3-D and finite, the merged
+   and down-sampled maps non-empty, the 3-D files of the 8 forked workers
+   equal to a serial lift and merge of the same 2-D lanes; forked workers
+   are marked by torch (a CUDA call there raises) and the card still works
+   after them; lanes, vertices and the lift's wall time; K1z's launch
+   count on the stream > 0;
+16. the flagship with ``column_att``, then with
+   ``column_transformer_decoder``, at full width (JAX's default token
+   widths), bf16, batch 8: ``tools/stream_map --from-las`` over phase 4's
+   clouds (K1's launch count > 0; lane JSONs and head maps checked as in
+   phase 4), forward and decode ms per batch and tiles/s; then
+   ``Runner.train(max_iters=3)`` over phase 7's dataset: s/step after the
+   warm-up step, peak ``max_memory_allocated``, every loss term finite;
+17. each branch's head at tiny widths on the card against the CPU, float32
+   with TF32 off, same seeded weights and inputs (the encoder's maps as
+   fixed seeded logits): outputs within rel-max 1e-5, identical lane
+   records at weight seeds whose decisions clear their thresholds by
+   1e-4 (asserted), and three steps of the port's train step from a
+   seeded mid-training Adam state with every loss term within rel 1e-6.
 
-Phases 9, 10, 12 and 13 run with PyTorch's default precision flags (TF32
-convolutions on).  Each phase prints its wall time.  Before the last line it prints ``{"kernels": [...]}``
-(with each kernel's launches on the serving and the training path); the
-last line is
+Phases 9, 10, 12, 13, 15 and 16 run with PyTorch's default precision flags
+(TF32 convolutions on).  Each phase prints its wall time.  Before the last
+line it prints ``{"kernels": [...]}`` (with each kernel's launches on the
+serving and the training path, the four configs of phases 12-13, the 3-D
+map paths of phase 15 and the branches of phase 16); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -396,12 +420,8 @@ def k_pass_bytes(pts, msk, n_valid, rec, out_bytes):
 
 
 def phase_slice(root, out_dir):
-    import torch
     from lanemapping_tpu_torch.config.config import Config
-    from lanemapping_tpu_torch.models.nets import build_model
-    from lanemapping_tpu_torch.ops.voxelize import bev_image_from_points
     from lanemapping_tpu_torch.tools import stream_map
-    from lanemapping_tpu_torch.tools.las2bev import las2bev_params
 
     reset_launches()
     rec = stream_map.main([FLAGSHIP, root, "--from-las", "--batch", str(B),
@@ -418,8 +438,19 @@ def phase_slice(root, out_dir):
     for stage, ms in rec["stage_ms_per_batch"].items():
         log(f"slice stage {stage} ms/batch {ms:.4f}")
 
-    # every head map of one batch through the same modules: finite, shaped
-    cfg = Config.fromfile(FLAGSHIP)
+    check_flagship_head_maps(Config.fromfile(FLAGSHIP), root, names)
+    log("slice head maps finite with the expected shapes")
+    return launches, rec
+
+
+def check_flagship_head_maps(cfg, root, names):
+    """Every head map of one batch of ``root``'s clouds through the modules
+    of ``cfg`` (seeded weights, bf16): finite, of the expected shapes."""
+    import torch
+    from lanemapping_tpu_torch.models.nets import build_model
+    from lanemapping_tpu_torch.ops.voxelize import bev_image_from_points
+    from lanemapping_tpu_torch.tools.las2bev import las2bev_params
+
     model = build_model(cfg, seed=0).to("cuda", torch.bfloat16)
     p = las2bev_params(cfg)
     pts, msk = load_batch(root, [n[:-5] for n in names[:B]], N_POINTS)
@@ -436,8 +467,6 @@ def phase_slice(root, out_dir):
         check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)}")
         check(bool(torch.isfinite(out[k]).all()), f"{k} is not finite")
     check(bool(torch.isfinite(x).all()), "BEV tile is not finite")
-    log("slice head maps finite with the expected shapes")
-    return launches, rec
 
 
 def phase_card_vs_cpu(root):
@@ -1403,6 +1432,389 @@ def phase_zoo_card_vs_cpu(root, log_root):
             f"{worst_loss[0]:.3e} ({worst_loss[1]})")
 
 
+# phase 16/17: the two optional branches of ColumnProposal2
+BRANCHES = ("column_att", "column_transformer_decoder")
+# phase 17's tiny token widths (those of the JAX package's branch test) and
+# weight seeds that put every decision of the decode on phase 17's inputs
+# at least 1.1e-3 and 2.2e-3 from its threshold (measured on the CPU; the
+# run asserts 1e-4)
+BRANCH_TINY = {"heads.dim_token": 64, "heads.tr_heads": 4,
+               "heads.tr_dim_head": 16, "heads.tr_mlp_dim": 128}
+BRANCH_SEEDS = {"column_att": 39, "column_transformer_decoder": 30}
+
+
+def lifted(pc_dir):
+    """Every lifted vertex 3-D and finite; (files, lanes, vertices)."""
+    import numpy as np
+    files = sorted(f for f in os.listdir(pc_dir) if f.endswith(".json"))
+    n_lanes = n_verts = 0
+    for f in files:
+        with open(os.path.join(pc_dir, f)) as fh:
+            for r in json.load(fh):
+                seq = np.asarray(r["seq"], np.float64)
+                check(seq.ndim == 2 and seq.shape[1] == 3,
+                      f"{f}: vertex shape {seq.shape}")
+                check(np.isfinite(seq).all(), f"{f}: non-finite 3-D vertex")
+                n_lanes += 1
+                n_verts += len(seq)
+    return files, n_lanes, n_verts
+
+
+def same_files(a, b):
+    """Whether two directories hold the same files, byte for byte."""
+    import filecmp
+    names = sorted(os.listdir(a))
+    return names == sorted(os.listdir(b)) and all(
+        filecmp.cmp(os.path.join(a, n), os.path.join(b, n), shallow=False)
+        for n in names)
+
+
+def check_lift(lanes_dir, data_root, params_dir, tmp, what):
+    """The 3-D files beside ``lanes_dir``: vertices 3-D and finite, merged
+    and down-sampled maps non-empty, all equal to a serial lift and merge
+    of the same 2-D lanes.  Returns (tiles lifted, lanes, vertices)."""
+    import shutil
+    from lanemapping_tpu_torch.tools.img2pc import convert_directory
+    from lanemapping_tpu_torch.tools.merge_lines import merge_directory
+    parent = os.path.dirname(lanes_dir)
+    pc_dir = os.path.join(parent, "out_pc_seq_json_dir")
+    for f in ("merged.txt", "merged_downsample.txt"):
+        path = os.path.join(pc_dir, f)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0,
+              f"{what}: {f} missing or empty")
+    files, n_lanes, n_verts = lifted(pc_dir)
+    n_tiles = len([f for f in files if not f.startswith("merged")])
+    check(n_tiles > 0, f"{what}: no tile lifted")
+    serial = os.path.join(tmp, "serial_" + what.replace(" ", "_"))
+    ref = convert_directory(shutil.copytree(lanes_dir, os.path.join(
+        serial, "lanes_2d")), os.path.join(data_root, "cropped_tiff"),
+        params_dir, n_workers=1)
+    merge_directory(ref)
+    check(same_files(ref, pc_dir) and same_files(
+        os.path.join(serial, "out_pc_seq_txt_dir"),
+        os.path.join(parent, "out_pc_seq_txt_dir")),
+        f"{what}: the worker pool's 3-D files differ from a serial lift")
+    return n_tiles, n_lanes, n_verts
+
+
+def _in_bad_fork(_):
+    import torch
+    return torch.cuda._is_in_bad_fork()
+
+
+def phase_map3d(root, stems, tmp):
+    """Phase 15: the 3-D lane map on the card.  Returns {path: launch
+    counts}."""
+    import multiprocessing
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch import LaneMapper
+    from lanemapping_tpu_torch.data.synthetic import write_transform_params
+    from lanemapping_tpu_torch.tools import stream_map
+
+    # phase 7's clouds stay as they were: the params come from their own
+    # RandomState, after the dataset
+    params_dir = os.path.join(root, "cropped_tiff_param")
+    os.makedirs(params_dir, exist_ok=True)
+    for i, stem in enumerate(stems):
+        write_transform_params(os.path.join(params_dir, stem + ".txt"), stem,
+                               np.random.RandomState(1000 + i))
+    torch_defaults()
+    launches = {}
+    out = os.path.join(tmp, "map3d_stream")
+    reset_launches()
+    t0 = time.perf_counter()
+    rec = stream_map.main([LIDAR, root, "--split", "infer_only", "--batch",
+                           str(B), "--out", out, "--seed", "0",
+                           "--params-dir", params_dir, "--bench-json"])
+    wall = time.perf_counter() - t0
+    launches["stream_map_lidar"] = read_launches()
+    check(launches["stream_map_lidar"]["voxel_bin_mean"] > 0,
+          "the 3-D map's LiDAR stream never launched K1z")
+    check(rec["merged_map"] == os.path.join(rec["pc_dir"], "merged.txt"),
+          f"stream_map record {rec.get('merged_map')}")
+    _, n_2d = check_lane_jsons(rec["lanes_dir"], len(stems))
+    n_tiles, n_lanes, n_verts = check_lift(rec["lanes_dir"], root,
+                                           params_dir, tmp, "stream_map")
+    log(f"3-D map, LiDAR stream_map --params-dir: {rec['n_tiles']} tiles "
+        f"({rec['value']:.4f} tiles/s streamed), {n_2d} 2-D lanes; lift and "
+        f"merge {rec['lift_s']:.3f} s ({n_tiles} tiles lifted, {n_lanes} "
+        f"lanes, {n_verts} 3-D vertices); run {wall:.3f} s; launches "
+        f"{launches['stream_map_lidar']}; equal to a serial lift")
+
+    # the lift's workers are forked from this process, whose CUDA context
+    # is live: torch marks them, so a CUDA call there would raise
+    with multiprocessing.Pool(2) as pool:
+        marked = pool.map(_in_bad_fork, range(2))
+    check(all(marked), f"forked workers not marked as such: {marked}")
+    check(float(torch.ones(4, device="cuda").sum()) == 4.0,
+          "CUDA unusable after the forked lift")
+
+    out = os.path.join(tmp, "map3d_mapper")
+    reset_launches()
+    t0 = time.perf_counter()
+    mapper = LaneMapper(FLAGSHIP, device="cuda",
+                        log_dir=os.path.join(out, "log"))
+    t1 = time.perf_counter()
+    lanes_dir = mapper.map_directory(root, out, params_dir=params_dir)
+    wall = time.perf_counter() - t1
+    launches["map_directory"] = read_launches()
+    check(mapper.device.type == "cuda", f"mapper on {mapper.device}")
+    _, n_2d = check_lane_jsons(lanes_dir, len(stems))
+    n_tiles, n_lanes, n_verts = check_lift(lanes_dir, root, params_dir, tmp,
+                                           "map_directory")
+    log(f"3-D map, LaneMapper(flagship, cuda).map_directory(params_dir): "
+        f"{len(stems)} tiles, {n_2d} 2-D lanes, {n_tiles} tiles lifted, "
+        f"{n_lanes} lanes, {n_verts} 3-D vertices in {wall:.3f} s (mapper "
+        f"built in {t1 - t0:.3f} s); launches {launches['map_directory']};"
+        f" equal to a serial lift")
+    del mapper
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_three_steps(name, cfg, log_dir):
+    """``Runner.train(max_iters=3)`` with CUDA events per step: (s/step
+    after the warm-up step, peak GiB, launch counts, train records)."""
+    import torch
+    from lanemapping_tpu_torch.engine.runner import Runner
+
+    runner = Runner(cfg, log_dir=log_dir)
+    check(runner.device.type == "cuda", f"{name}: on {runner.device}")
+    step, times = runner.train_step, []
+
+    def timed_step(state, b):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        stats = step(state, b)  # reads the loss on the host
+        e.record()
+        times.append((a, e))
+        return stats
+
+    runner.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    runner.train(max_iters=3)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs = train_records(log_dir)
+    check(len(recs) == 3, f"{name}: {len(recs)} steps logged")
+    for r in recs:
+        bad = [k for k in TERMS + ("loss",) if not math.isfinite(r[k])]
+        check(not bad, f"{name}: non-finite {bad} at step {r['iter']}")
+        check(r["skipped_nan"] == 0.0, f"{name}: NaN guard fired")
+    step_ms = [a.elapsed_time(e) for a, e in times]
+    del runner
+    torch.cuda.empty_cache()
+    return sum(step_ms[1:]) / len(step_ms[1:]) / 1e3, peak, launches, recs
+
+
+def phase_branches(las_root, lidar_root, tmp):
+    """Phase 16: the flagship with each branch at full width, bf16, batch
+    8: serving from phase 4's clouds, then 3 training steps.  Returns
+    {branch: {"serving": launch counts, "training": launch counts}}."""
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.tools import stream_map
+
+    torch_defaults()
+    launches = {}
+    for branch in BRANCHES:
+        out = os.path.join(tmp, "branch_" + branch)
+        reset_launches()
+        rec = stream_map.main([FLAGSHIP, las_root, f"{branch}=True",
+                               "--from-las", "--batch", str(B), "--out", out,
+                               "--seed", "0", "--bench-json"])
+        serving = read_launches()
+        check(serving["bev_bin_mean"] > 0,
+              f"{branch}: the serving path never launched K1")
+        check(rec["n_tiles"] == N_CLOUDS and rec["dtype"] == "bfloat16",
+              f"{branch}: {rec['n_tiles']} tiles in {rec['dtype']}")
+        names, n_lanes = check_lane_jsons(rec["lanes_dir"], N_CLOUDS)
+        cfg = Config.fromfile(FLAGSHIP)
+        cfg[branch] = True
+        check_flagship_head_maps(cfg, las_root, names)
+        ms = rec["stage_ms_per_batch"]
+        log(f"{branch} serving: {rec['value']:.4f} tiles/s ({rec['n_tiles']}"
+            f" tiles, batch {rec['batch']}, bf16, {rec['wall_s']:.4f} s); "
+            f"ms per batch forward {ms['forward']:.4f}, decode "
+            f"{ms['decode']:.4f}, rasterize {ms['rasterize']:.4f}, host "
+            f"postprocess {ms['postprocess_host']:.4f}; lanes {n_lanes}; "
+            f"launches {serving}; head maps finite with the expected "
+            f"shapes")
+
+        cfg = train_cfg(FLAGSHIP, lidar_root, log_every=1, eval_ep=10 ** 6,
+                        save_ep=10 ** 6, gt_cache=True, workers=8)
+        cfg[branch] = True
+        s_step, peak, training, recs = train_three_steps(
+            branch, cfg, os.path.join(tmp, "branch_train_" + branch))
+        log(f"{branch} training: 3 steps of batch {cfg.batch_size} (bf16); "
+            f"after the warm-up step {s_step:.5f} s/step, "
+            f"{cfg.batch_size / s_step:.4f} tiles/s; peak "
+            f"max_memory_allocated {peak:.3f} GiB; launches {training}; "
+            f"losses {[round(r['loss'], 5) for r in recs]}")
+        launches[branch] = {"serving": serving, "training": training}
+    return launches
+
+
+def fixed_input_net(head, ins, enc):
+    """A ColumnProposal2 head on fixed seeded inputs, as a net for the
+    port's train step: whatever tile it is given, it returns the head's
+    maps (image maps NHWC, as Detector1stage returns them) and the fixed
+    encoder maps the loss and the decode also read."""
+    import torch
+
+    class FixedInputNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.heads = head
+            for i, a in enumerate(ins):
+                self.register_buffer(f"in{i}", a)
+            for k, v in enc.items():
+                self.register_buffer(k, v)
+
+        def forward(self, _tile):
+            out = self.heads(self.in0, self.in1, self.in2)
+            for k in ("orient", "endpoint"):
+                if k in out:
+                    out[k] = out[k].permute(0, 2, 3, 1)
+            out["semantic_seg"] = self.semantic_seg
+            out["endp_est"] = self.endp_est
+            return out
+
+    return FixedInputNet()
+
+
+def decision_margin(dec, cfg, img):
+    """The least distance of a decision of the decode from its threshold:
+    proposal confidence, existence class, the column argmax at kept
+    vertices, the kept columns from an integer (the tracker's cell)."""
+    import numpy as np
+    conf = dec["prop_conf"][..., 1]
+    margins = [np.abs(conf - cfg.proposal_obj_thre).min()]
+    kept = (conf >= cfg.proposal_obj_thre)[..., None] \
+        & (dec["prop_v_ext"] > 0.5)
+    probs = np.sort(dec["prop_cls_conf"], axis=-1)
+    if kept.any():
+        margins.append((probs[..., -1] - probs[..., -2])[kept].min())
+        coors = dec["cls_offset"] / cfg.heads.row_size * img
+        frac = np.abs(coors - np.round(coors))[kept & (coors > 0)]
+        if frac.size:
+            margins.append(frac.min())
+    return float(min(margins))
+
+
+def phase_branch_card_vs_cpu(root, log_root):
+    """Phase 17: each branch's head at tiny widths, the port on the card
+    against the port on the CPU, float32, TF32 off, from the same seeded
+    weights and inputs: outputs, decoded lane records, 3 train steps."""
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.api import to_numpy
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    from lanemapping_tpu_torch.data.synthetic import generate_dataset
+    from lanemapping_tpu_torch.decode.lane_decode import (decode_lanes,
+                                                          host_decode_view)
+    from lanemapping_tpu_torch.decode.postprocess import lane_maps_from_decode
+    from lanemapping_tpu_torch.engine.runner import Runner
+    from lanemapping_tpu_torch.engine.state import (create_train_state,
+                                                    make_train_step)
+    from lanemapping_tpu_torch.models.head_losses import (
+        column_proposal_loss, head_hparams)
+    from lanemapping_tpu_torch.models.nets import init_weights
+    from lanemapping_tpu_torch.registry import build_heads
+    from lanemapping_tpu_torch.tools.export_lanes import lane_records
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    generate_dataset(root, n_tiles=4, img=192, seed=3)
+    for branch in BRANCHES:
+        cfg = Config.fromfile(TINY)
+        cfg[branch] = True
+        cfg.merge_from_dict(BRANCH_TINY)
+        for split in ("train", "val", "test"):
+            cfg.dataset[split]["data_root"] = root
+        S, img = cfg.heads.row_size, cfg.list_img_size_xy[0]
+        batch = next(iter(build_dataloader(cfg.dataset.train, cfg)))
+        nb = len(batch["image_name"])
+        rng = np.random.RandomState(6)
+        ins = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in (
+            (nb, 2, S, S), (nb, 8, 2 * S, 2 * S), (nb, 1, 8 * S, 8 * S))]
+        enc = {k: torch.from_numpy((2 * rng.randn(*s)).astype(np.float32))
+               for k, s in (("semantic_seg", (nb, img, img, 3)),
+                            ("endp_est", (nb, img, img, 1)))}
+        head = init_weights(build_heads(cfg), torch.Generator().manual_seed(
+            BRANCH_SEEDS[branch]))
+        nets = {"cpu": fixed_input_net(head, ins, enc)}
+        nets["cuda"] = copy.deepcopy(nets["cpu"]).cuda()
+        outs, recs, margin = {}, {}, None
+        for d, net in nets.items():
+            with torch.inference_mode():
+                out = net.eval()(None)
+                outs[d] = {k: v.float().cpu().numpy() for k, v in out.items()}
+                dec = to_numpy(decode_lanes(out, cfg))
+            if d == "cpu":
+                margin = decision_margin(dec, cfg, img)
+            maps = lane_maps_from_decode(host_decode_view(dec), cfg)
+            recs[d] = [lane_records(m) for m in maps["cls_offset_smooth"]]
+        check(margin > 1e-4, f"tiny {branch}: a decision {margin:.2e} from "
+              f"its threshold; choose another weight seed")
+        worst = max((float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max()
+                           / max(1e-3, np.abs(outs["cpu"][k]).max())), k)
+                    for k in outs["cpu"])
+        check(worst[0] < 1e-5,
+              f"tiny {branch}: {worst[1]} rel-max {worst[0]:.3e} >= 1e-5")
+        n_rec = 0
+        for g, c in zip(recs["cuda"], recs["cpu"]):
+            check([(r["lane_id"], r["seq_len"]) for r in g]
+                  == [(r["lane_id"], r["seq_len"]) for r in c],
+                  f"tiny {branch}: lane records differ")
+            for a, b in zip(g, c):
+                sa, sb = np.asarray(a["seq"]), np.asarray(b["seq"])
+                check(np.array_equal(sa[:, [0, 2]], sb[:, [0, 2]]) and
+                      np.allclose(sa[:, 1], sb[:, 1], atol=1e-3),
+                      f"tiny {branch}: lane {a['lane_id']} differs")
+                n_rec += 1
+        check(n_rec > 0, f"tiny {branch}: no lane record decoded")
+
+        # three train steps from a seeded mid-training Adam state at a tenth
+        # of the config's lr, as phase 11
+        cfg.optimizer.lr = cfg.optimizer.lr / 10
+        cfg.scheduler.T_max = 1000
+        hp = head_hparams(cfg)
+        step = make_train_step(lambda o, b: column_proposal_loss(o, b, hp))
+        probe = copy.deepcopy(nets["cpu"]).train()
+        db = Runner(cfg, log_dir=os.path.join(log_root, branch),
+                    device="cpu")._device_batch(batch)
+        loss = column_proposal_loss(probe(None), db, hp)["loss"]
+        grads = torch.autograd.grad(loss, list(probe.parameters()),
+                                    allow_unused=True)
+        stats = {}
+        for d, net in nets.items():
+            state = create_train_state(net, cfg)
+            seed_adam(state, grads, seed=1)
+            dev_db = {k: v.to(d) for k, v in db.items()}
+            stats[d] = [step(state, dev_db) for _ in range(3)]
+        worst_loss = (0.0, "")
+        for i, (sc, sg) in enumerate(zip(stats["cpu"], stats["cuda"])):
+            for k in TERMS + ("loss",):
+                c, g = float(sc[k]), float(sg[k])
+                err = abs(g - c) / max(abs(c), 1e-12) if c or g else 0.0
+                check(err < 1e-6, f"tiny {branch} step {i} {k}: card {g} cpu "
+                      f"{c} (rel {err:.3e})")
+                worst_loss = max(worst_loss, (err, f"step {i} {k}"))
+        log(f"tiny {branch} card vs cpu: worst output rel-max "
+            f"{worst[0]:.3e} ({worst[1]}); {n_rec} lane records identical "
+            f"(columns to 1e-3 px), decisions at least {margin:.2e} from "
+            f"their thresholds; 3 train steps, losses cpu "
+            f"{[round(float(s['loss']), 6) for s in stats['cpu']]}, worst "
+            f"term rel {worst_loss[0]:.3e} ({worst_loss[1]})")
+
+
 def main():
     if not (os.path.isdir(os.path.join(HERE, "lanemapping_tpu_torch", "csrc"))
             and all(os.path.isfile(c) for c in (FLAGSHIP, TINY, LIDAR,
@@ -1482,6 +1894,17 @@ def main():
                 for name in ZOO}
         phase(14, phase_zoo_card_vs_cpu, os.path.join(tmp, "tiny_zoo"),
               os.path.join(tmp, "zoo_tiny_logs"))
+
+        map3d = phase(15, phase_map3d, lidar_root, stems, tmp)
+        branches = phase(16, phase_branches, root, lidar_root, tmp)
+        for k in (k1, k1z):
+            k["launches_map3d"] = {path: c[k["name"]]
+                                   for path, c in map3d.items()}
+            k["launches_branches"] = {
+                b: {how: c[k["name"]] for how, c in counts.items()}
+                for b, counts in branches.items()}
+        phase(17, phase_branch_card_vs_cpu, os.path.join(tmp, "tiny_branch"),
+              os.path.join(tmp, "branch_tiny_logs"))
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

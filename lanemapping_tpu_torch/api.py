@@ -4,14 +4,16 @@
     mapper = lmt.LaneMapper("configs/Proj_polyline_fpn_vit_vertex_2.py",
                             ckpt="model.pth")          # runs on the card
     lanes = mapper.map_tiles(["tile1.png", "tile2.png"])
-    mapper.map_directory("data/TestArea1", out_dir="out")   # lane JSONs
+    mapper.map_directory("data/TestArea1", out_dir="out",   # lane JSONs
+                         params_dir="data/TestArea1/cropped_tiff_param")
     metrics = mapper.evaluate("data/TestArea1", split="test")
 
 The mapper runs on ``device="cuda"`` unless the caller asks for the CPU; it
 raises when CUDA is asked for and there is no card, rather than carrying on
 elsewhere.  It holds a ``Runner`` (`engine/runner.py`), whose model it
 serves; ``ckpt`` is a torch ``state_dict`` / reference ``.pth`` file or a
-Runner checkpoint directory (``<log_dir>/ckpt/<tag>``).
+Runner checkpoint directory (``<log_dir>/ckpt/<tag>``), of which it reads
+the weights alone, so a checkpoint trained on the card serves on the CPU.
 """
 
 from __future__ import annotations
@@ -35,9 +37,15 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load a torch checkpoint: a plain ``state_dict`` or a reference
-    ``{net|state_dict|model: ...}`` container, ``module.`` prefixes
+    """Load the weights of a torch checkpoint, whatever device it was saved
+    on: a plain ``state_dict``, a reference ``{net|state_dict|model: ...}``
+    container, or a Runner checkpoint (its directory or ``state.pt``; the
+    optimizer, scheduler and generator are not read), ``module.`` prefixes
     stripped.  BatchNorm ``num_batches_tracked`` may be absent."""
+    from .engine.checkpoint import STATE_FILE
+
+    if os.path.isdir(path):
+        path = os.path.join(path, STATE_FILE)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict):
         for key in ("net", "state_dict", "model"):
@@ -72,7 +80,6 @@ class LaneMapper:
                  device: Union[str, torch.device] = "cuda",
                  log_dir: Optional[str] = None):
         from .config.config import Config
-        from .engine.checkpoint import load_model
         from .engine.runner import Runner
 
         self.device = resolve_device(device)
@@ -81,9 +88,7 @@ class LaneMapper:
         self.runner = Runner(self.cfg, device=self.device, log_dir=log_dir
                              or os.path.join(tempfile.gettempdir(),
                                              "lanemapper"))
-        if ckpt and os.path.isdir(ckpt):
-            load_model(ckpt, self.runner.state)
-        elif ckpt:
+        if ckpt:
             load_checkpoint(self.runner.model, ckpt)
         self.model = self.runner.model.eval()
 
@@ -118,15 +123,13 @@ class LaneMapper:
                       split: str = "all", params_dir: Optional[str] = None,
                       max_batches: Optional[int] = None) -> str:
         """Dataset dir -> one lane JSON per tile under
-        ``<out_dir>/lanes_2d``, which it returns.  The 3-D lift of a
-        transform-params dir waits for `tools/img2pc.py` and
-        `tools/merge_lines.py`."""
+        ``<out_dir>/lanes_2d``, which it returns.  With a transform-params
+        dir (``cropped_tiff_param``) the lanes are lifted to the LiDAR frame
+        (`tools/img2pc.py`, beside ``lanes_2d``) and merged into one global
+        map (`tools/merge_lines.py`), as the JAX package's ``api.py:88-96``
+        does."""
         from .data.loader import build_dataloader
 
-        if params_dir:
-            raise NotImplementedError(
-                "the 3-D lift (params_dir) is not ported to "
-                "lanemapping_tpu_torch yet")
         ds_cfg = dict(self.cfg.dataset.test)
         ds_cfg["data_root"] = data_root
         ds_cfg["mode"] = split
@@ -134,6 +137,13 @@ class LaneMapper:
         lanes_dir = os.path.join(out_dir, "lanes_2d")
         self.runner.infer_and_export(loader, lanes_dir,
                                      max_batches=max_batches)
+        if params_dir and os.path.isdir(params_dir):
+            from .tools.img2pc import convert_directory
+            from .tools.merge_lines import merge_directory
+            pc_dir = convert_directory(
+                lanes_dir, os.path.join(data_root, "cropped_tiff"),
+                params_dir, n_workers=8)
+            merge_directory(pc_dir)
         return lanes_dir
 
     def evaluate(self, data_root: str, split: str = "test",

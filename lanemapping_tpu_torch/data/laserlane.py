@@ -161,10 +161,16 @@ class LaserLaneProposal:
     _CACHE_U8 = {"proj": 255.0, "endp_map": 255.0, "label_raw": 1.0}
 
     def _cache_path(self, stem: str) -> str:
+        # Departure from JAX `laserlane.py:163-170`, which keys the cache by
+        # head geometry only: a training sample lacks the evaluation keys
+        # (`mask`, `initp`, `endp`), so a cache filled in training would
+        # serve evaluation samples without them and the semantic F1 would
+        # drop silently.  Training and evaluation samples live apart.
         cfg = self.cfg
+        use = "train" if self.mode == "train" else "eval"
         sig = f"{cfg.number_lanes}_{cfg.heads.row_size}_" \
               f"{cfg.heads.num_prop}_{cfg.heads.prop_width}_" \
-              f"{cfg.heads.prop_half_buff}_{int(bool(cfg.get('fused_seg_focal', True)))}"
+              f"{cfg.heads.prop_half_buff}_{int(bool(cfg.get('fused_seg_focal', True)))}_{use}"
         d = osp.join(self.data_root, ".gt_cache", sig)
         import os
         os.makedirs(d, exist_ok=True)

@@ -2,9 +2,15 @@
 
 ``save_model`` writes ``<log_dir>/ckpt/<tag>/state.pt`` with
 ``torch.save``: the model's ``state_dict``, the optimizer's and the
-scheduler's, the step and the dropout generator's state.  ``load_model``
-restores all of it (a full resume, as the JAX package does; the reference
-restores weights only).  ``load_network_filtered`` is the finetune load: it
+scheduler's, the step, and the dropout generator's state with its device
+type.  ``load_model`` restores all of it (a full resume, as the JAX package
+does; the reference restores weights only).  A generator's state only fits
+a generator of its own device type (a CUDA state is 16 bytes, a CPU state
+5056), so a resume on another device type reseeds the generator from
+``(seed, step)`` instead and logs it; the JAX package's checkpoints hold a
+plain PRNG key and have no such limit.  An evaluation load reads the
+weights alone (`api.py::load_checkpoint`).  ``load_network_filtered`` is the
+finetune load: it
 keeps the entries whose shapes match the model (reference
 `net_utils.py:23-33`), from such a checkpoint or from a plain torch
 ``state_dict`` / reference ``.pth``.  Orbax checkpoints of the JAX package
@@ -13,6 +19,7 @@ would need JAX; their weights cross through `tools/from_jax.py`.
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Dict
 
@@ -21,6 +28,7 @@ import torch
 from .state import TrainState
 
 STATE_FILE = "state.pt"
+log = logging.getLogger(__name__)
 
 
 def _ckpt_dir(log_dir: str) -> str:
@@ -37,7 +45,8 @@ def save_model(log_dir: str, state: TrainState, tag: str) -> str:
                 "optimizer": state.optimizer.state_dict(),
                 "scheduler": state.scheduler.state_dict(),
                 "step": state.step,
-                "generator": state.generator.get_state()}, tmp)
+                "generator": state.generator.get_state(),
+                "generator_device": state.generator.device.type}, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
     return path
 
@@ -48,15 +57,29 @@ def _read(path: str) -> Dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_model(path: str, state: TrainState) -> TrainState:
+def load_model(path: str, state: TrainState, seed: int = 0) -> TrainState:
     """Restore a ``save_model`` checkpoint (its directory) into ``state``,
-    in place."""
+    in place.  The generator's state is restored on the device type it was
+    saved on (bit-identical resume); on another device type the generator
+    is seeded with ``seed * 2^32 + step`` instead."""
     ckpt = _read(path)
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.scheduler.load_state_dict(ckpt["scheduler"])
     state.step = int(ckpt["step"])
-    state.generator.set_state(ckpt["generator"])
+    own = state.generator.device.type
+    saved = ckpt.get("generator_device")
+    if saved is None:  # written before the device type was recorded
+        same = ckpt["generator"].numel() == state.generator.get_state().numel()
+    else:
+        same = saved == own
+    if same:
+        state.generator.set_state(ckpt["generator"])
+    else:
+        state.generator.manual_seed(int(seed) * 2 ** 32 + state.step)
+        log.warning("%s: the dropout generator was saved on %s; resuming on "
+                    "%s, it is reseeded from (seed %d, step %d)", path,
+                    saved or "another device type", own, seed, state.step)
     return state
 
 

@@ -102,7 +102,7 @@ class Runner:
         self.best_metric = -1.0
 
         if cfg.get("load_from"):
-            load_model(cfg.load_from, self.state)
+            load_model(cfg.load_from, self.state, seed)
         elif cfg.get("finetune_from"):
             load_network_filtered(cfg.finetune_from, self.state)
 
@@ -131,7 +131,9 @@ class Runner:
     def resume_latest(self) -> bool:
         """Crash recovery: restore the newest checkpoint under
         ``<log_dir>/ckpt`` (an ``epoch_N`` before ``best``), optimizer,
-        scheduler, step and generator included.  True if one was found."""
+        scheduler, step and generator included (a generator saved on
+        another device type is reseeded, `checkpoint.py::load_model`).
+        True if one was found."""
         ckpt_dir = os.path.join(self.log_dir, "ckpt")
         if not os.path.isdir(ckpt_dir):
             return False
@@ -144,7 +146,8 @@ class Runner:
             return (1, int(t.split("_")[1])) if t.startswith("epoch_") \
                 else (0, 0)
         tag = sorted(tags, key=key)[-1]
-        load_model(os.path.join(ckpt_dir, tag), self.state)
+        load_model(os.path.join(ckpt_dir, tag), self.state,
+                   self.cfg.get("seed", 0))
         return True
 
     # -- logging -----------------------------------------------------------

@@ -15,8 +15,21 @@ stride 2 on the zero-padded [S, S+8] map.
 Layout: inputs NCHW (x [B,F,S,S], x_up [B,F,2S,2S], x_endp [B,1,8S,8S]);
 ``orient`` and ``endpoint`` come out NCHW, the proposal outputs as
 [B, P, ...] like the JAX package.  Module names are the reference's, so a
-reference checkpoint loads with ``load_state_dict``.  The ``column_att`` and
-``column_transformer_decoder`` branches wait for a later slice.
+reference checkpoint loads with ``load_state_dict``.
+
+Two optional branches replace the correlator map before the local+global
+concat, as the JAX head's (`column_head.py:120-123,215-305` there):
+
+- ``column_att`` (reference `:132-188,317-346`): a Conv_Pool_2d stack
+  downsamples the map to one column per proposal, each column becomes a
+  token with its own position embedding (the reference's ``emb_{i}``, one
+  parameter per proposal), the lane-correlator transformer and LayerNorm
+  run over the P tokens, and ``line_expand`` turns each token back into a
+  column feature.  Reference names throughout.
+- ``column_transformer_decoder``: the JAX package's working stand-in for a
+  reference branch that raises ``AttributeError`` (it calls modules its
+  ``__init__`` never defines): P learned queries cross-attend over 8x8
+  patch embeddings of the map.  flax names throughout.
 
 Training (``self.training``) follows the JAX head's ``train=True``: the
 endpoint branch, which only ``endp_mode='endpoint'`` reads, still runs on
@@ -28,6 +41,8 @@ unfused loss.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -35,8 +50,9 @@ import torch.nn.functional as F
 from ..ops.interp import (_interp_matrix_np, _upsample_then_pool_np,
                           resize_bilinear_ac)
 from ..registry import HEADS
-from .norm import BatchNorm1d, BatchNorm2d
-from .vit import correlator_out_channels
+from .norm import BatchNorm1d, BatchNorm2d, Dropout
+from .transformer import (LN_EPS, CrossAttention, FeedForward, Transformer)
+from .vit import correlator_out_channels, patchify
 
 BN_MOMENTUM = 0.1  # flax momentum 0.9
 BN_EPS = 1e-5
@@ -54,13 +70,50 @@ def _operator(m, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(m, dtype=like.dtype, device=like.device)
 
 
+class ConvPoolStack(nn.Module):
+    """Reference ``Conv_Pool_2d`` (`polyline_fpn_vit_vertex_2.py:48-61`):
+    ``layers.0`` a (5,3) convolution, then one [ReLU, BatchNorm, stride-2
+    convolution] stage ``layers.{i}`` per width."""
+
+    def __init__(self, input_dim: int, hidden_dims, output_dim: int):
+        super().__init__()
+        chans = [input_dim] + list(hidden_dims) + [output_dim]
+        layers = [nn.Conv2d(input_dim, input_dim, (5, 3), padding=(2, 1))]
+        for i, o in zip(chans[:-1], chans[1:]):
+            layers.append(nn.Sequential(nn.ReLU(), _bn2d(i),
+                                        _conv3(i, o, stride=2)))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+def column_pool_stages(row_size: int, num_prop: int) -> int:
+    """The stride-2 stages that take S rows to one column per proposal;
+    ``ValueError`` unless S = P * 2^k (JAX `column_head.py:233-238`)."""
+    k = max(1, int(math.log2(max(1, row_size // num_prop))))
+    if num_prop << k != row_size:
+        raise ValueError(
+            f"column_att needs row_size to be num_prop * 2^k (reference "
+            f"supports num_prop in {{72,36,18}} at S=144); got S={row_size}, "
+            f"P={num_prop}")
+    return k
+
+
 class ColumnProposalHead(nn.Module):
     def __init__(self, dim_feat: int = 8, row_size: int = 144,
                  dim_shared: int = 100, num_prop: int = 72,
                  prop_width: int = 2, prop_half_buff: int = 4,
                  num_orients: int = 11, spatial_att: bool = True,
                  endp_mode: str = "endp_est", in_channels: int = 8,
-                 up_channels: int = 8, fused_seg_focal: bool = True):
+                 up_channels: int = 8, fused_seg_focal: bool = True,
+                 column_att: bool = False,
+                 column_transformer_decoder: bool = False,
+                 dim_token: int = 1024, tr_depth: int = 1, tr_heads: int = 16,
+                 tr_dim_head: int = 64, tr_mlp_dim: int = 2048,
+                 tr_dropout: float = 0.0, tr_emb_dropout: float = 0.0):
         super().__init__()
         F_ = dim_feat
         self.dim_feat, self.row_size, self.num_prop = F_, row_size, num_prop
@@ -95,6 +148,76 @@ class ColumnProposalHead(nn.Module):
         self.cls2 = head1d(self.W)
         self.offset2 = head1d(self.W)
 
+        self.column_att = column_att
+        self.column_transformer_decoder = column_transformer_decoder
+        # both branches map the correlator map [B,C,S,S] to [B,C,S,P]
+        C = in_channels
+        if column_att:
+            k = column_pool_stages(row_size, num_prop)
+            self.generate_line_proposal = nn.Sequential(ConvPoolStack(
+                C, [C * 2 ** i for i in range(1, k)], C * 2 ** k))
+            self.to_token = nn.Sequential(
+                nn.Identity(), nn.Linear(C * 2 ** k * num_prop, dim_token))
+            for i in range(num_prop):
+                setattr(self, f"emb_{i}", nn.Parameter(torch.zeros(dim_token)))
+            self.emb_dropout = Dropout(tr_emb_dropout)
+            self.tr_lane_correlator = nn.Sequential(
+                Transformer(dim_token, tr_depth, tr_heads, tr_dim_head,
+                            tr_mlp_dim, tr_dropout),
+                nn.LayerNorm(dim_token, eps=LN_EPS))
+            self.line_expand = nn.Sequential(
+                nn.Linear(dim_token, C * row_size))
+        elif column_transformer_decoder:
+            n = row_size // 8  # 8x8 patches
+            self.to_patch_embedding = nn.Linear(64 * C, dim_token)
+            self.img_pe = nn.Parameter(torch.zeros(n * n, dim_token))
+            self.kv_norm = nn.LayerNorm(dim_token, eps=LN_EPS)
+            self.query_embed = nn.Parameter(torch.zeros(num_prop, dim_token))
+            self.tr_depth = tr_depth
+            for d in range(tr_depth):
+                setattr(self, f"dec{d}_norm1",
+                        nn.LayerNorm(dim_token, eps=LN_EPS))
+                setattr(self, f"dec{d}_xattn", CrossAttention(
+                    dim_token, tr_heads, tr_dim_head, dim_token))
+                setattr(self, f"dec{d}_norm2",
+                        nn.LayerNorm(dim_token, eps=LN_EPS))
+                setattr(self, f"dec{d}_mlp",
+                        FeedForward(dim_token, tr_mlp_dim, tr_dropout))
+            self.dec_out_norm = nn.LayerNorm(dim_token, eps=LN_EPS)
+            self.reverse_query_embedding = nn.Linear(dim_token, C * row_size)
+
+    def _column_attention(self, x: torch.Tensor) -> torch.Tensor:
+        """[B,C,S,S] -> [B,C,S,P]: one token per proposal column, tokens
+        built at once where the reference loops over batch and proposals."""
+        B, C, S, _ = x.shape
+        P = self.num_prop
+        fd = self.generate_line_proposal(x)  # [B,C',P,P]
+        # one token per column; (c h) flatten order, h fastest (`:159-162`)
+        t = self.to_token[1](fd.permute(0, 3, 1, 2).reshape(B, P, -1))
+        emb = torch.stack([getattr(self, f"emb_{i}") for i in range(P)])
+        t = self.emb_dropout(t + emb.to(t.dtype))
+        t = self.tr_lane_correlator(t)
+        col = self.line_expand[0](t)  # [B,P,C*S], (c h) per token
+        return col.reshape(B, P, C, S).permute(0, 2, 3, 1)
+
+    def _column_query_decoder(self, x: torch.Tensor) -> torch.Tensor:
+        """[B,C,S,S] -> [B,C,S,P]: P learned lane queries cross-attend over
+        8x8 patch embeddings (+ learned position embeddings) of the map in
+        pre-norm blocks, then expand to per-proposal column features as
+        ``line_expand`` does."""
+        B, C, S, _ = x.shape
+        P = self.num_prop
+        kv = self.to_patch_embedding(patchify(x, 8))  # (p1 p2 c) patches
+        kv = self.kv_norm(kv + self.img_pe.to(kv.dtype))
+        q = self.query_embed.to(kv.dtype).expand(B, -1, -1)
+        for d in range(self.tr_depth):
+            qn = getattr(self, f"dec{d}_norm1")(q)
+            q = q + getattr(self, f"dec{d}_xattn")(qn, kv)
+            qn = getattr(self, f"dec{d}_norm2")(q)
+            q = q + getattr(self, f"dec{d}_mlp")(qn)
+        col = self.reverse_query_embedding(self.dec_out_norm(q))
+        return col.reshape(B, P, C, S).permute(0, 2, 3, 1)
+
     @staticmethod
     def _conv1d_head(seq: nn.Sequential, tok: torch.Tensor) -> torch.Tensor:
         """The reference's Conv1d(k=1)-BN-Conv1d over tokens, as two linears
@@ -111,6 +234,11 @@ class ColumnProposalHead(nn.Module):
         B = x.shape[0]
         need_prop_seg = self.training and not self.fused_seg_focal
         out = {}
+
+        if self.column_att:
+            x = self._column_attention(x)  # [B,C,S,P]
+        elif self.column_transformer_decoder:
+            x = self._column_query_decoder(x)  # [B,C,S,P]
 
         col_fea_up = torch.cat([resize_bilinear_ac(x, 2 * S, 2 * S), x_up],
                                dim=1)  # [B,2F,2S,2S]
@@ -170,11 +298,6 @@ class ColumnProposalHead(nn.Module):
 @HEADS.register_module(name="ColumnProposal2")
 def build_column_proposal2(cfg=None, dim_feat=8, row_size=144, dim_shared=100,
                            num_prop=72, prop_width=2, prop_half_buff=4, **kw):
-    if cfg is not None:
-        for flag in ("column_att", "column_transformer_decoder"):
-            if cfg.get(flag, False):
-                raise NotImplementedError(
-                    f"cfg.{flag} is not ported to lanemapping_tpu_torch yet")
     in_ch = correlator_out_channels(cfg) if cfg is not None else 8
     return ColumnProposalHead(
         dim_feat=dim_feat, row_size=row_size, dim_shared=dim_shared,
@@ -183,4 +306,13 @@ def build_column_proposal2(cfg=None, dim_feat=8, row_size=144, dim_shared=100,
         num_orients=cfg.number_orients if cfg else 11,
         spatial_att=cfg.get("spatial_att", True) if cfg else True,
         endp_mode=kw.get("endp_mode", "endp_est"), in_channels=in_ch,
-        fused_seg_focal=cfg.get("fused_seg_focal", True) if cfg else True)
+        fused_seg_focal=cfg.get("fused_seg_focal", True) if cfg else True,
+        column_att=cfg.get("column_att", False) if cfg else False,
+        column_transformer_decoder=cfg.get(
+            "column_transformer_decoder", False) if cfg else False,
+        dim_token=kw.get("dim_token", 1024), tr_depth=kw.get("tr_depth", 1),
+        tr_heads=kw.get("tr_heads", 16),
+        tr_dim_head=kw.get("tr_dim_head", 64),
+        tr_mlp_dim=kw.get("tr_mlp_dim", 2048),
+        tr_dropout=kw.get("tr_dropout", 0.0),
+        tr_emb_dropout=kw.get("tr_emb_dropout", 0.0))

@@ -18,6 +18,7 @@ free views and the convolutions run channels-last.
 
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import torch
@@ -89,16 +90,22 @@ def _build_detector1stage(head_type=None, loss_type=None, cfg=None):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every parameter from ``generator`` (seeded random weights):
-    PyTorch's default uniform ranges for convolutions, linears and the
-    lane-batched linears of ``PerLaneConvHead`` (bound 1/sqrt(fan_in)),
-    unit scale and zero shift for the norms, unit normal for the position
-    and lane embeddings.  BatchNorm running statistics stay at (0, 1)."""
+    PyTorch's default uniform ranges for convolutions, linears, flax-layout
+    ``DenseGeneral`` kernels and the lane-batched linears of
+    ``PerLaneConvHead`` (bound 1/sqrt(fan_in)), unit scale and zero shift
+    for the norms; the embeddings as the flax initializers draw them: unit
+    normal for the position, lane, proposal (``emb_{i}``) and query
+    embeddings, N(0, 0.02^2) for the query decoder's ``img_pe``.
+    BatchNorm running statistics stay at (0, 1)."""
+    from .transformer import DenseGeneral
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, PerLaneConvHead):
                 m.reset_parameters(generator)
-            elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
-                bound = m.weight[0].numel() ** -0.5
+            elif isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear,
+                                DenseGeneral)):
+                bound = (m.fan_in if isinstance(m, DenseGeneral)
+                         else m.weight[0].numel()) ** -0.5
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
                     m.bias.uniform_(-bound, bound, generator=generator)
@@ -107,8 +114,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.fill_(1.0)
                 m.bias.zero_()
         for name, p in model.named_parameters():
-            if name.endswith(("pos_embedding", "lane_emb")):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("pos_embedding", "lane_emb", "query_embed") \
+                    or re.fullmatch(r"emb_\d+", leaf):
                 p.normal_(generator=generator)
+            elif leaf == "img_pe":
+                p.normal_(0.0, 0.02, generator=generator)
     return model
 
 

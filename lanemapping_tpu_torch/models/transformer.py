@@ -6,10 +6,14 @@ Module and parameter names are the reference's
 a plain ``load_state_dict``.  The math follows the JAX package, which is the
 port's reference: LayerNorm eps 1e-6 (flax's default) and the tanh GELU
 (flax's ``nn.gelu``); the attention logits and softmax are float32 whatever
-the working dtype, as `transformer.py:48-52` there.
+the working dtype, as `transformer.py:48-52` there.  ``CrossAttention``
+(the column head's query decoder) keeps flax's own attention module's
+names and arithmetic instead.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -87,3 +91,54 @@ class Transformer(nn.Module):
             x = x + attn(x)
             x = x + ff(x)
         return x
+
+
+class DenseGeneral(nn.Module):
+    """flax's ``nn.DenseGeneral`` with its kernel in flax's layout
+    ``in_shape + out_shape`` (contracting the trailing ``in_shape`` axes
+    of the input) and a bias of ``out_shape``."""
+
+    def __init__(self, in_shape: tuple, out_shape: tuple):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.fan_in = math.prod(self.in_shape)
+        self.weight = nn.Parameter(torch.empty(*in_shape, *out_shape))
+        self.bias = nn.Parameter(torch.zeros(*out_shape))
+
+    def forward(self, x):
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        y = x.reshape(*lead, self.fan_in) \
+            @ self.weight.reshape(self.fan_in, -1)
+        return y.reshape(*lead, *self.out_shape) + self.bias
+
+
+class CrossAttention(nn.Module):
+    """Multi-head cross-attention with the semantics of flax 0.12.3's
+    ``nn.MultiHeadDotProductAttention`` at its defaults (no dropout, no
+    mask), which the JAX query decoder runs (`column_head.py:293-298`
+    there): ``query``, ``key``, ``value`` are DenseGeneral kernels
+    [dim, heads, dim_head], ``out`` one [heads, dim_head, out_dim].  Unlike
+    ``Attention`` above, everything stays in the input dtype: the query is
+    divided by ``sqrt(dim_head)`` rounded to that dtype before the product,
+    and the softmax runs in that dtype (flax's
+    ``force_fp32_for_softmax=False``), so in bf16 on a bf16 config.
+    Explicit matmuls, so the precision is the one chosen here."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, out_dim: int):
+        super().__init__()
+        self.dim_head = dim_head
+        self.query = DenseGeneral((dim,), (heads, dim_head))
+        self.key = DenseGeneral((dim,), (heads, dim_head))
+        self.value = DenseGeneral((dim,), (heads, dim_head))
+        self.out = DenseGeneral((heads, dim_head), (out_dim,))
+
+    def forward(self, x, kv):
+        q, k, v = (t.transpose(1, 2) for t in (
+            self.query(x), self.key(kv), self.value(kv)))  # [B,H,N,D]
+        # the divisor stays a CPU scalar: a tensor made on the card would be
+        # a host-to-device copy, which waits for the card mid-forward.  On
+        # the card PyTorch multiplies by its float32 reciprocal, exact when
+        # dim_head is a power of 4 (16 and 64, the widths in use)
+        q = q / torch.tensor(math.sqrt(self.dim_head), dtype=q.dtype)
+        attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+        return self.out(torch.matmul(attn, v).transpose(1, 2))

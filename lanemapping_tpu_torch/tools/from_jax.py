@@ -8,8 +8,11 @@ a reference ``.pth`` loads the same way without this module.
 
 The LiDAR encoder has no torch reference (the reference's spconv encoder
 has no dense counterpart), nor have the MixSegNet correlator, the legacy
-ResNet projector and the KLane heads here: their torch names are the flax
-module names.  ``PerLaneConvHead`` keeps flax's ``[N, I, O]`` weights.
+ResNet projector, the KLane heads and ColumnProposal2's query decoder
+here: their torch names are the flax module names.  ``PerLaneConvHead``
+keeps flax's ``[N, I, O]`` weights, the query decoder's attention flax's
+DenseGeneral kernels.  ColumnProposal2's ``column_att`` branch keeps the
+reference's names, with one ``emb_{i}`` per row of flax's ``prop_emb``.
 
 Layouts: flax conv HWIO -> torch OIHW; Dense [I,O] -> Linear [O,I];
 Dense [I,O] -> Conv1d(k=1) [O,I,1]; BatchNorm scale/bias + batch_stats
@@ -174,6 +177,49 @@ def _mixsegnet_rules(depth: int) -> list:
     return R + _conv_rules(f"{bb}.shared_mlp", f"{bb}/shared_mlp")
 
 
+def _column_att_rules(depth: int, stages: int, num_prop: int) -> list:
+    """The ``column_att`` branch under the reference's names (JAX
+    `port_torch_ckpt.py:141-165`): the Conv_Pool_2d stack, the tokeniser,
+    one ``emb_{i}`` per proposal (row i of flax's ``prop_emb`` table), the
+    lane correlator and its LayerNorm, the expander."""
+    hd = "heads"
+    glp, jglp = f"{hd}.generate_line_proposal.0.layers", \
+        f"{hd}/generate_line_proposal"
+    R = _conv_rules(f"{glp}.0", f"{jglp}/conv0")
+    for i in range(stages):
+        R += [(f"{glp}.{i + 1}.1", f"{jglp}/bn{i}", "bn")]
+        R += _conv_rules(f"{glp}.{i + 1}.2", f"{jglp}/conv{i + 1}")
+    R += _dense_rules(f"{hd}.to_token.1", f"{hd}/to_token")
+    R += [(f"{hd}.emb_{i}", f"{hd}/prop_emb", lambda v, i=i: v[i])
+          for i in range(num_prop)]
+    R += _transformer_rules(f"{hd}.tr_lane_correlator.0",
+                            f"{hd}/tr_lane_correlator", depth)
+    R += _ln_rules(f"{hd}.tr_lane_correlator.1", f"{hd}/tr_lane_norm")
+    return R + _dense_rules(f"{hd}.line_expand.0", f"{hd}/line_expand")
+
+
+def _column_decoder_rules(depth: int) -> list:
+    """The query-decoder branch: flax names; the DenseGeneral kernels keep
+    flax's layout."""
+    hd = "heads"
+    R = _dense_rules(f"{hd}.to_patch_embedding", f"{hd}/to_patch_embedding")
+    R += [(f"{hd}.img_pe", f"{hd}/img_pe", None),
+          (f"{hd}.query_embed", f"{hd}/query_embed", None)]
+    R += _ln_rules(f"{hd}.kv_norm", f"{hd}/kv_norm")
+    for d in range(depth):
+        t, j = f"{hd}.dec{d}", f"{hd}/dec{d}"
+        R += _ln_rules(f"{t}_norm1", f"{j}_norm1")
+        R += _ln_rules(f"{t}_norm2", f"{j}_norm2")
+        R += [(f"{t}_xattn.{m}.{w}", f"{j}_xattn/{m}/{leaf}", None)
+              for m in ("query", "key", "value", "out")
+              for w, leaf in (("weight", "kernel"), ("bias", "bias"))]
+        R += _dense_rules(f"{t}_mlp.net.0", f"{j}_mlp/fc1")
+        R += _dense_rules(f"{t}_mlp.net.3", f"{j}_mlp/fc2")
+    R += _ln_rules(f"{hd}.dec_out_norm", f"{hd}/dec_out_norm")
+    return R + _dense_rules(f"{hd}.reverse_query_embedding",
+                            f"{hd}/reverse_query_embedding")
+
+
 def _column_proposal_rules() -> list:
     hd = "heads"
     seq = [
@@ -233,11 +279,15 @@ _HEAD_CONVS = {"GridSeg": ("conf_fc1", "conf_fc2", "cls_fc1", "cls_fc2"),
 
 def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
                 pcencoder="PostProjector2", backbone="VitSegNet",
-                head="ColumnProposal2", head_depth=1) -> list:
+                head="ColumnProposal2", head_depth=1, column_branch=None,
+                num_prop=72, pool_stages=1) -> list:
     """(torch_key, flax_path, inverse layout) triples for a net of the
     given encoder, correlator (``None`` for none) and head (``None`` for
     the Segmentor); ``vit_depth`` is the correlator's depth and
-    ``head_depth`` the row head's lane-correlator depth.  Rules whose flax
+    ``head_depth`` the row head's lane-correlator depth or that of
+    ColumnProposal2's ``column_branch`` (``"column_att"`` with
+    ``num_prop`` proposals and ``pool_stages`` stride-2 stages, or
+    ``"column_transformer_decoder"``).  Rules whose flax
     path is absent (a missing trunk stage, an unused lateral, a projection
     the encoder does not have, a shared MLP the correlator does not use)
     are skipped by ``params_from_jax``."""
@@ -251,6 +301,10 @@ def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
         R += _mixsegnet_rules(vit_depth)
     if head == "ColumnProposal2":
         R += _column_proposal_rules()
+        if column_branch == "column_att":
+            R += _column_att_rules(head_depth, pool_stages, num_prop)
+        elif column_branch == "column_transformer_decoder":
+            R += _column_decoder_rules(head_depth)
     elif head == "RowSharNotReducRef":
         R += _row_shar_rules(head_depth)
     elif head in _HEAD_CONVS:
@@ -297,16 +351,24 @@ def params_from_jax(params: Dict, batch_stats: Dict, rules=None
 def rules_for(cfg) -> list:
     """``build_rules`` for a config: its net, encoder and trunk, correlator
     and its depth, head and its lane-correlator depth."""
+    from ..models.column_head import column_pool_stages
     from ..models.resnet_fpn import RESNET_LAYERS
     segmentor = cfg.net.type == "Segmentor"
     has_bb = "backbone" in cfg and not segmentor
+    branch = next((f for f in ("column_att", "column_transformer_decoder")
+                   if cfg.get(f, False)), None)
     return build_rules(
         resnet_layers=RESNET_LAYERS[cfg.pcencoder.get("resnet", "resnet34")],
         vit_depth=cfg.backbone.get("depth", 3) if has_bb else 0,
         pcencoder=cfg.pcencoder.type,
         backbone=cfg.backbone.type if has_bb else None,
         head=None if segmentor else cfg.heads.type,
-        head_depth=cfg.heads.get("tr_depth", 1) if not segmentor else 0)
+        head_depth=cfg.heads.get("tr_depth", 1) if not segmentor else 0,
+        column_branch=None if segmentor else branch,
+        num_prop=cfg.heads.get("num_prop", 72) if not segmentor else 0,
+        pool_stages=column_pool_stages(cfg.heads.row_size,
+                                       cfg.heads.num_prop)
+        if branch == "column_att" else 0)
 
 
 def load_jax_weights(model: torch.nn.Module, params: Dict, batch_stats: Dict,

@@ -10,7 +10,8 @@ lane, grid or segmentation F1) and prints them as JSON, then with
 per tile (ColumnProposal2, RowSharNotReducRef, GridSeg) or the Segmentor's
 pooled metrics, with ``--view`` the overlay PNGs beside them.  ``--ckpt``
 is a Runner checkpoint directory (``<log_dir>/ckpt/<tag>``) or a torch
-``state_dict`` file.  It runs on the card unless ``--device cpu`` is given.
+``state_dict`` file; only its weights are read, whatever device it was
+saved on.  It runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ def main(argv=None) -> dict:
     from ..api import load_checkpoint
     from ..config.config import Config, parse_dict_action
     from ..data.loader import build_dataloader
-    from ..engine.checkpoint import load_model
     from ..engine.runner import KLANE_HEADS, Runner
 
     cfg = Config.fromfile(args.config)
@@ -50,11 +50,7 @@ def main(argv=None) -> dict:
         cfg.merge_from_dict(parse_dict_action(args.overrides))
     runner = Runner(cfg, device=args.device)
     if args.ckpt:
-        path = os.path.abspath(args.ckpt)
-        if os.path.isdir(path):
-            load_model(path, runner.state)
-        else:
-            load_checkpoint(runner.model, path)
+        load_checkpoint(runner.model, os.path.abspath(args.ckpt))
 
     split_cfg = cfg.dataset[args.split if args.split in cfg.dataset
                             else "test"]

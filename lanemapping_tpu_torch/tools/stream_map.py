@@ -25,15 +25,22 @@ on a worker pool while the next batch runs on the card.
 
     python -m lanemapping_tpu_torch.tools.stream_map <config> <data_root> \\
         [--from-las] [--split infer_only] [--ckpt model.pth] [--batch 8] \\
-        [--device cuda]
+        [--params-dir <data_root>/cropped_tiff_param] [--device cuda]
 
 One ``<out>/lanes_2d/<name>.json`` is written per tile.  Without ``--ckpt``
 the weights are random, drawn from ``--seed`` (default ``cfg.seed``).
+With ``--params-dir`` (a ``cropped_tiff_param`` directory) the lanes are
+then lifted to the LiDAR frame, with the elevations of
+``<data_root>/cropped_tiff`` (`tools/img2pc.py`, 8 worker processes), and
+merged into one global map (`tools/merge_lines.py`), as the JAX script
+does (`tools/stream_map.py:325-335` there).
 
 ``main`` returns the run's numbers: tiles/s, and per stage the milliseconds
 per batch (device time from CUDA events for upload, the input stage
 (rasterize, voxelize or normalize), forward and decode; host time for the
-postprocess workers).
+postprocess workers); after a 3-D lift also the paths of the 3-D lane
+directory and of the merged and down-sampled maps, and the lift's wall
+seconds (outside the timed region).
 """
 
 from __future__ import annotations
@@ -95,6 +102,9 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt", default=None, help="torch state_dict (.pth)")
     ap.add_argument("--out", default="./map_out")
     ap.add_argument("--split", default="all")
+    ap.add_argument("--params-dir", default=None,
+                    help="cropped_tiff_param dir for the 3-D lift; skipped "
+                    "if absent")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--max-batches", type=int, default=None)
     ap.add_argument("--device", default="cuda")
@@ -284,6 +294,19 @@ def main(argv=None) -> Dict:
           f"({tiles_s:.3f} tiles/s end-to-end on {device})")
     for s, ms in stage_ms.items():
         print(f"[stream_map] stage {s}: {ms:.3f} ms/batch")
+    if args.params_dir and os.path.isdir(args.params_dir):
+        from .img2pc import convert_directory
+        from .merge_lines import merge_directory
+        t0 = time.perf_counter()
+        pc_dir = convert_directory(
+            lanes_dir, os.path.join(args.data_root, "cropped_tiff"),
+            args.params_dir, n_workers=8)
+        rec["merged_map"], rec["merged_downsample"] = merge_directory(pc_dir)
+        rec["pc_dir"] = pc_dir
+        rec["lift_s"] = time.perf_counter() - t0
+        print(f"[stream_map] global map: {rec['merged_map']}")
+    else:
+        print("[stream_map] no params dir: stopping at 2-D lane seqs")
     if args.bench_json:
         print(json.dumps(rec))
     return rec

@@ -144,7 +144,9 @@ def test_import_loads_no_jax_and_no_jax_package():
         "       'engine.checkpoint', 'engine.runner', 'utils.metrics',\n"
         "       'utils.skeleton', 'tools.train', 'models.legacy',\n"
         "       'models.row_head', 'decode.row_decode', 'decode.seg_infer',\n"
-        "       'utils.vis_utils', 'tools.infer']\n"
+        "       'utils.vis_utils', 'tools.infer', 'utils.io_utils',\n"
+        "       'tools.img2pc', 'tools.merge_lines', 'tools.convert_data',\n"
+        "       'models.transformer', 'models.column_head']\n"
         "missing = [m for m in new\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"

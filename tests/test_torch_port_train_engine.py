@@ -369,8 +369,11 @@ def test_lane_mapper_map_directory_and_evaluate(data_root, tmp_path):
         f"{190000 + i:06d}_{i:04d}"[:11] + ".json" for i in range(8))
     metrics = mapper.evaluate(data_root, split="test")
     assert {"coor_f1", "endp_f1", "composite"} <= set(metrics)
-    with pytest.raises(NotImplementedError, match="params_dir"):
-        mapper.map_directory(data_root, str(tmp_path / "o"), params_dir="p")
+    # as in the JAX package, a params dir that is not there stops at 2-D
+    # (the lift itself: tests/test_torch_port_map3d.py)
+    out = mapper.map_directory(data_root, str(tmp_path / "o"),
+                               params_dir=str(tmp_path / "absent"))
+    assert os.listdir(tmp_path / "o") == ["lanes_2d"] and os.listdir(out)
 
 
 def test_dropout_draws_from_the_train_state_generator(data_root, tmp_path):
