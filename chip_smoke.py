@@ -121,12 +121,35 @@ or outside a checkout.  Phases, each of which fails the run:
    records at weight seeds whose decisions clear their thresholds by
    1e-4 (asserted), and three steps of the port's train step from a
    seeded mid-training Adam state with every loss term within rel 1e-6.
+18. the rest of the model zoo at full width: the flagship with
+   ``heads.type=RowSharNotReducRef_Base`` (the head's default token widths,
+   bf16, batch 8), ``tools/stream_map --from-las`` over phase 4's clouds
+   (K1's launch count > 0; lane JSONs and head maps checked as in phase 4),
+   then ``Runner.train(max_iters=3)`` over phase 7's dataset; the flagship
+   trained 3 steps with ``s2d_stem``, ``endp_head_extra``, ``remat`` and
+   ``optimizer.mu_dtype=bfloat16``, then 3 with ``remat_policy=dots``
+   (the trunk checkpointed, the flags and the bf16-moment Adam present);
+   an s2d stem with a loaded 7x7 kernel against the 7x7 conv at
+   [8,3,1152,1152] float32, TF32 off, within rel-max 1e-5; the nine
+   ResnetFPN backbones (``num_channels=64``) at the flagship's correlator
+   input [8,64,144,144] and Swin-T (embed 96, depths 2-2-6-2, heads
+   3-6-12-24, window 7) at [8,3,896,896], bf16, training-mode forward +
+   backward ms (CUDA events) and peak ``max_memory_allocated``;
+19. phase 18's models at tiny widths on the card against the CPU, float32
+   with TF32 off: the Base head as phase 17 checks the branches (outputs
+   within rel-max 1e-5, identical lane records, 3 steps' loss terms within
+   rel 1e-6); 3 steps of the tiny config with every flag of phase 18 as
+   phase 11 checks them (loss terms within 1e-4, parameters and buffers
+   within rel-max 2e-3); the nine family backbones and the JAX package's
+   test Swin in eval and train mode within rel-max 1e-5.
 
-Phases 9, 10, 12, 13, 15 and 16 run with PyTorch's default precision flags
-(TF32 convolutions on).  Each phase prints its wall time.  Before the last
-line it prints ``{"kernels": [...]}`` (with each kernel's launches on the
-serving and the training path, the four configs of phases 12-13, the 3-D
-map paths of phase 15 and the branches of phase 16); the last line is
+Phases 9, 10, 12, 13, 15, 16 and 18 run with PyTorch's default precision
+flags (TF32 convolutions on) but where they say otherwise.  Each phase
+prints its wall time.  Before the last line it prints ``{"kernels":
+[...]}`` (with each kernel's launches on the serving and the training
+path, the four configs of phases 12-13, the 3-D map paths of phase 15,
+the branches of phase 16 and phase 18's Base head and flag runs); the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -443,9 +466,10 @@ def phase_slice(root, out_dir):
     return launches, rec
 
 
-def check_flagship_head_maps(cfg, root, names):
+def check_flagship_head_maps(cfg, root, names, extra=None):
     """Every head map of one batch of ``root``'s clouds through the modules
-    of ``cfg`` (seeded weights, bf16): finite, of the expected shapes."""
+    of ``cfg`` (seeded weights, bf16): finite, of the expected shapes (the
+    column head's, and ``extra`` {key: shape})."""
     import torch
     from lanemapping_tpu_torch.models.nets import build_model
     from lanemapping_tpu_torch.ops.voxelize import bev_image_from_points
@@ -461,7 +485,7 @@ def check_flagship_head_maps(cfg, root, names):
                                   fill_iters=p["fill_iters"])
         out = model(x[..., None].expand(*x.shape, 3).to(torch.bfloat16))
     S, P = cfg.heads.row_size, cfg.heads.num_prop
-    want = head_shapes(S, P)
+    want = {**head_shapes(S, P), **(extra or {})}
     check(set(out) == set(want), f"head keys {sorted(out)}")
     for k, shape in want.items():
         check(tuple(out[k].shape) == shape, f"{k} shape {tuple(out[k].shape)}")
@@ -1710,12 +1734,34 @@ def phase_branch_card_vs_cpu(root, log_root):
     """Phase 17: each branch's head at tiny widths, the port on the card
     against the port on the CPU, float32, TF32 off, from the same seeded
     weights and inputs: outputs, decoded lane records, 3 train steps."""
+    import torch
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.data.synthetic import generate_dataset
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    generate_dataset(root, n_tiles=4, img=192, seed=3)
+    for branch in BRANCHES:
+        cfg = Config.fromfile(TINY)
+        cfg[branch] = True
+        cfg.merge_from_dict(BRANCH_TINY)
+        head_card_vs_cpu(f"tiny {branch}", cfg, BRANCH_SEEDS[branch], root,
+                         os.path.join(log_root, branch))
+
+
+def head_card_vs_cpu(what, cfg, seed, root, log_dir):
+    """A column-contract head of ``cfg`` at tiny widths on fixed seeded
+    inputs (the encoder's maps as fixed seeded logits), the port on the
+    card against the port on the CPU, from the weights of ``seed``:
+    outputs within rel-max 1e-5, identical lane records at a seed whose
+    decisions clear their thresholds by 1e-4, and three train steps from a
+    seeded mid-training Adam state with every loss term within rel 1e-6
+    (phases 17 and 19)."""
     import numpy as np
     import torch
     from lanemapping_tpu_torch.api import to_numpy
-    from lanemapping_tpu_torch.config.config import Config
     from lanemapping_tpu_torch.data.loader import build_dataloader
-    from lanemapping_tpu_torch.data.synthetic import generate_dataset
     from lanemapping_tpu_torch.decode.lane_decode import (decode_lanes,
                                                           host_decode_view)
     from lanemapping_tpu_torch.decode.postprocess import lane_maps_from_decode
@@ -1728,91 +1774,365 @@ def phase_branch_card_vs_cpu(root, log_root):
     from lanemapping_tpu_torch.registry import build_heads
     from lanemapping_tpu_torch.tools.export_lanes import lane_records
 
+    for split in ("train", "val", "test"):
+        cfg.dataset[split]["data_root"] = root
+    S, img = cfg.heads.row_size, cfg.list_img_size_xy[0]
+    batch = next(iter(build_dataloader(cfg.dataset.train, cfg)))
+    nb = len(batch["image_name"])
+    rng = np.random.RandomState(6)
+    ins = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in (
+        (nb, 2, S, S), (nb, 8, 2 * S, 2 * S), (nb, 1, 8 * S, 8 * S))]
+    enc = {k: torch.from_numpy((2 * rng.randn(*s)).astype(np.float32))
+           for k, s in (("semantic_seg", (nb, img, img, 3)),
+                        ("endp_est", (nb, img, img, 1)))}
+    head = init_weights(build_heads(cfg), torch.Generator().manual_seed(seed))
+    nets = {"cpu": fixed_input_net(head, ins, enc)}
+    nets["cuda"] = copy.deepcopy(nets["cpu"]).cuda()
+    outs, recs, margin = {}, {}, None
+    for d, net in nets.items():
+        with torch.inference_mode():
+            out = net.eval()(None)
+            outs[d] = {k: v.float().cpu().numpy() for k, v in out.items()}
+            dec = to_numpy(decode_lanes(out, cfg))
+        if d == "cpu":
+            margin = decision_margin(dec, cfg, img)
+        maps = lane_maps_from_decode(host_decode_view(dec), cfg)
+        recs[d] = [lane_records(m) for m in maps["cls_offset_smooth"]]
+    check(margin > 1e-4, f"{what}: a decision {margin:.2e} from its "
+          f"threshold; choose another weight seed")
+    worst = max((float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max()
+                       / max(1e-3, np.abs(outs["cpu"][k]).max())), k)
+                for k in outs["cpu"])
+    check(worst[0] < 1e-5, f"{what}: {worst[1]} rel-max {worst[0]:.3e} >= "
+          f"1e-5")
+    n_rec = 0
+    for g, c in zip(recs["cuda"], recs["cpu"]):
+        check([(r["lane_id"], r["seq_len"]) for r in g]
+              == [(r["lane_id"], r["seq_len"]) for r in c],
+              f"{what}: lane records differ")
+        for a, b in zip(g, c):
+            sa, sb = np.asarray(a["seq"]), np.asarray(b["seq"])
+            check(np.array_equal(sa[:, [0, 2]], sb[:, [0, 2]]) and
+                  np.allclose(sa[:, 1], sb[:, 1], atol=1e-3),
+                  f"{what}: lane {a['lane_id']} differs")
+            n_rec += 1
+    check(n_rec > 0, f"{what}: no lane record decoded")
+
+    # three train steps from a seeded mid-training Adam state at a tenth
+    # of the config's lr, as phase 11
+    cfg.optimizer.lr = cfg.optimizer.lr / 10
+    cfg.scheduler.T_max = 1000
+    hp = head_hparams(cfg)
+    step = make_train_step(lambda o, b: column_proposal_loss(o, b, hp))
+    probe = copy.deepcopy(nets["cpu"]).train()
+    db = Runner(cfg, log_dir=log_dir, device="cpu")._device_batch(batch)
+    loss = column_proposal_loss(probe(None), db, hp)["loss"]
+    grads = torch.autograd.grad(loss, list(probe.parameters()),
+                                allow_unused=True)
+    stats = {}
+    for d, net in nets.items():
+        state = create_train_state(net, cfg)
+        seed_adam(state, grads, seed=1)
+        dev_db = {k: v.to(d) for k, v in db.items()}
+        stats[d] = [step(state, dev_db) for _ in range(3)]
+    worst_loss = (0.0, "")
+    for i, (sc, sg) in enumerate(zip(stats["cpu"], stats["cuda"])):
+        for k in TERMS + ("loss",):
+            c, g = float(sc[k]), float(sg[k])
+            err = abs(g - c) / max(abs(c), 1e-12) if c or g else 0.0
+            check(err < 1e-6, f"{what} step {i} {k}: card {g} cpu {c} (rel "
+                  f"{err:.3e})")
+            worst_loss = max(worst_loss, (err, f"step {i} {k}"))
+    log(f"{what} card vs cpu: worst output rel-max {worst[0]:.3e} "
+        f"({worst[1]}); {n_rec} lane records identical (columns to 1e-3 "
+        f"px), decisions at least {margin:.2e} from their thresholds; 3 "
+        f"train steps, losses cpu "
+        f"{[round(float(s['loss']), 6) for s in stats['cpu']]}, worst term "
+        f"rel {worst_loss[0]:.3e} ({worst_loss[1]})")
+
+
+# phases 18/19: RowSharNotReducRef_Base, the FPN flags with the bf16-moment
+# Adam, the ResnetFPN family and Swin
+BASE_HEAD = {"heads.type": "RowSharNotReducRef_Base"}
+# phase 19's tiny widths (those of the JAX package's test of the head) and
+# a weight seed that puts every decision of the decode on phase 19's inputs
+# at least 2.2e-2 from its threshold (measured on the CPU; the run asserts
+# 1e-4)
+BASE_TINY = {**BASE_HEAD, "heads.dim_token": 64, "heads.tr_heads": 4,
+             "heads.tr_dim_head": 16, "heads.tr_mlp_dim": 128,
+             "heads.row_dim_token": 32, "heads.row_tr_heads": 4,
+             "heads.row_tr_dim_head": 8, "heads.row_tr_mlp_dim": 64}
+BASE_SEED = 57
+FPN_FLAGS = {"s2d_stem": True, "endp_head_extra": True, "remat": True,
+             "optimizer.mu_dtype": "bfloat16"}
+# Swin-T's published widths, and the JAX package's test Swin
+SWIN_T = {"embed_dim": 96, "depths": (2, 2, 6, 2),
+          "num_heads": (3, 6, 12, 24), "window_size": 7}
+CORR_SIDE = IMG // 8  # the flagship correlator's map, 144 = 9 * 2^4
+SWIN_IMG = 896  # 224 tokens a side: 32 windows of 7 in stage 0
+SWIN_TINY = {"embed_dim": 32, "depths": (2, 2), "num_heads": (2, 4),
+             "window_size": 4, "out_indices": (0, 1)}
+
+
+def rel_max(got, want):
+    """max |got - want| / max(1e-3, max |want|), on host copies."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / max(1e-3,
+                                                 float(want.abs().max())))
+
+
+def fwd_bwd(model, x, iters=3):
+    """Training-mode forward + backward of a backbone (the mean square of
+    its outputs as the loss): ms per call from CUDA events after a warm-up
+    call, and the peak ``max_memory_allocated`` GiB of the timed calls."""
+    import torch
+
+    def run():
+        out = model(x)
+        outs = out if isinstance(out, tuple) else (out,)
+        sum(o.float().square().mean() for o in outs).backward()
+
+    model.train()
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        run()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_zoo_models(las_root, lidar_root, tmp):
+    """Phase 18: the slice's models at full width on the card.  Returns
+    {path: launch counts}."""
+    import torch
+    import torch.nn.functional as F
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.engine.optimizer import MuDtypeAdam
+    from lanemapping_tpu_torch.engine.runner import Runner
+    from lanemapping_tpu_torch.models.resnet_fpn import (
+        FPNEncoder, _space_to_depth, load_s2d_stem)
+    from lanemapping_tpu_torch.models.resnet_fpn_family import FAMILY
+    from lanemapping_tpu_torch.registry import BACKBONE
+    from lanemapping_tpu_torch.tools import stream_map
+
+    torch_defaults()
+    launches = {}
+    # the flagship with RowSharNotReducRef_Base: serving from phase 4's
+    # clouds, then 3 training steps on phase 7's dataset
+    out = os.path.join(tmp, "base_serving")
+    reset_launches()
+    rec = stream_map.main([FLAGSHIP, las_root,
+                           "heads.type=RowSharNotReducRef_Base",
+                           "--from-las", "--batch", str(B), "--out", out,
+                           "--seed", "0", "--bench-json"])
+    serving = read_launches()
+    check(serving["bev_bin_mean"] > 0,
+          "the Base head's serving path never launched K1")
+    check(rec["n_tiles"] == N_CLOUDS and rec["dtype"] == "bfloat16",
+          f"base head: {rec['n_tiles']} tiles in {rec['dtype']}")
+    names, n_lanes = check_lane_jsons(rec["lanes_dir"], N_CLOUDS)
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.merge_from_dict(BASE_HEAD)
+    S = cfg.heads.row_size
+    check_flagship_head_maps(cfg, las_root, names,
+                             extra={"endpoint": (B, 8 * S, 8 * S, 1)})
+    ms = rec["stage_ms_per_batch"]
+    log(f"base head serving: {rec['value']:.4f} tiles/s ({rec['n_tiles']} "
+        f"tiles, batch {rec['batch']}, bf16, {rec['wall_s']:.4f} s); ms per "
+        f"batch forward {ms['forward']:.4f}, decode {ms['decode']:.4f}, "
+        f"rasterize {ms['rasterize']:.4f}, host postprocess "
+        f"{ms['postprocess_host']:.4f}; lanes {n_lanes}; launches {serving};"
+        f" head maps finite with the expected shapes")
+
+    def train_cfg3(over):
+        cfg = train_cfg(FLAGSHIP, lidar_root, log_every=1, eval_ep=10 ** 6,
+                        save_ep=10 ** 6, gt_cache=True, workers=8)
+        cfg.merge_from_dict(over)
+        return cfg
+
+    s_step, peak, training, recs = train_three_steps(
+        "base head", train_cfg3(BASE_HEAD), os.path.join(tmp, "base_train"))
+    log(f"base head training: 3 steps of batch {B} (bf16); after the "
+        f"warm-up step {s_step:.5f} s/step, {B / s_step:.4f} tiles/s; peak "
+        f"max_memory_allocated {peak:.3f} GiB; launches {training}; losses "
+        f"{[round(r['loss'], 5) for r in recs]}")
+    launches["base_head"] = {"serving": serving, "training": training}
+
+    # the FPN flags with the bf16-moment Adam, then remat's "dots" policy
+    for name, over in (("flags", FPN_FLAGS),
+                       ("remat dots", {"remat": True,
+                                       "remat_policy": "dots"})):
+        cfg = train_cfg3(over)
+        probe = Runner(cfg, log_dir=os.path.join(tmp, "probe"))
+        fpn = probe.model.pcencoder.fpn
+        check(type(fpn.layer1).__name__ == "RematStage"
+              and fpn.layer1.policy == cfg.get("remat_policy", "full"),
+              f"{name}: the trunk is not checkpointed")
+        if name == "flags":
+            check(hasattr(fpn, "conv1_s2d") and hasattr(fpn, "endp_extra")
+                  and isinstance(probe.state.optimizer, MuDtypeAdam),
+                  "flags: s2d stem, endpoint extra or bf16-moment Adam "
+                  "missing")
+        del probe, fpn
+        s_step, peak, training, recs = train_three_steps(
+            name, cfg, os.path.join(tmp, "train_" + name.replace(" ", "_")))
+        log(f"{name} training ({over}): 3 steps of batch {B} (bf16); after "
+            f"the warm-up step {s_step:.5f} s/step, {B / s_step:.4f} "
+            f"tiles/s; peak max_memory_allocated {peak:.3f} GiB; launches "
+            f"{training}; losses {[round(r['loss'], 5) for r in recs]}")
+        launches[name] = {"training": training}
+
+    # an s2d stem with a loaded 7x7 kernel against the 7x7 conv, float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    plain = FPNEncoder().cuda()
+    with torch.no_grad():
+        plain.conv1.weight.copy_(torch.randn(64, 3, 7, 7, generator=g)
+                                 / 147 ** 0.5)
+    s2d = FPNEncoder(s2d_stem=True).cuda()
+    s2d.load_state_dict(load_s2d_stem(plain.state_dict(), s2d.state_dict()))
+    x = torch.rand(B, 3, IMG, IMG, generator=g).cuda()
+    with torch.no_grad():
+        want = plain.conv1(x)
+        got = s2d.conv1_s2d(F.pad(_space_to_depth(x), (2, 1, 2, 1)))
+    check(got.shape == want.shape == (B, 64, IMG // 2, IMG // 2),
+          f"s2d stem shape {tuple(got.shape)}")
+    err = rel_max(got, want)
+    check(err < 1e-5, f"s2d stem against the 7x7 conv: rel-max {err:.3e}")
+    log(f"s2d stem with a loaded 7x7 kernel against the 7x7 conv at "
+        f"[{B},3,{IMG},{IMG}] float32, TF32 off: rel-max {err:.3e}")
+    del plain, s2d, x, got, want
+    torch_defaults()
+
+    # the family at the flagship's correlator input, Swin-T at its widths
+    x = torch.randn(B, 64, CORR_SIDE, CORR_SIDE, generator=g).cuda() \
+        .to(torch.bfloat16)
+    for name in FAMILY:
+        model = BACKBONE.get(name)(num_channels=64).cuda().to(torch.bfloat16)
+        ms_, peak = fwd_bwd(model, x)
+        out = model(x)
+        check(out.shape[-2:] == x.shape[-2:] and bool(
+            torch.isfinite(out).all()), f"{name}: {tuple(out.shape)}")
+        log(f"{name} (num_channels 64) forward + backward at "
+            f"{list(x.shape)} bf16: {ms_:.4f} ms, peak {peak:.3f} GiB, "
+            f"output {list(out.shape)}")
+        del model, out
+        torch.cuda.empty_cache()
+    x = torch.rand(B, 3, SWIN_IMG, SWIN_IMG, generator=g).cuda() \
+        .to(torch.bfloat16)
+    model = BACKBONE.get("SwinTransformer")(**SWIN_T).cuda() \
+        .to(torch.bfloat16)
+    ms_, peak = fwd_bwd(model, x)
+    outs = model(x)
+    side = SWIN_IMG // 4
+    check([tuple(o.shape) for o in outs] == [
+        (B, SWIN_T["embed_dim"] * 2 ** i, side >> i, side >> i)
+        for i in range(4)]
+        and all(bool(torch.isfinite(o).all()) for o in outs),
+        f"Swin-T stages {[tuple(o.shape) for o in outs]}")
+    log(f"Swin-T (embed 96, depths 2-2-6-2, heads 3-6-12-24, window 7) "
+        f"forward + backward at [{B},3,{SWIN_IMG},{SWIN_IMG}] bf16: "
+        f"{ms_:.4f} ms, peak "
+        f"{peak:.3f} GiB, stages {[list(o.shape) for o in outs]}")
+    del model, outs, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_zoo_models_card_vs_cpu(root, log_root):
+    """Phase 19: phase 18's models at tiny widths, the port on the card
+    against the port on the CPU, float32, TF32 off, from the same seeded
+    weights and inputs."""
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    from lanemapping_tpu_torch.data.synthetic import generate_dataset
+    from lanemapping_tpu_torch.engine.runner import Runner
+    from lanemapping_tpu_torch.engine.state import model_input
+    from lanemapping_tpu_torch.models.nets import init_weights
+    from lanemapping_tpu_torch.models.resnet_fpn_family import FAMILY
+    from lanemapping_tpu_torch.registry import BACKBONE
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     generate_dataset(root, n_tiles=4, img=192, seed=3)
-    for branch in BRANCHES:
-        cfg = Config.fromfile(TINY)
-        cfg[branch] = True
-        cfg.merge_from_dict(BRANCH_TINY)
-        for split in ("train", "val", "test"):
-            cfg.dataset[split]["data_root"] = root
-        S, img = cfg.heads.row_size, cfg.list_img_size_xy[0]
-        batch = next(iter(build_dataloader(cfg.dataset.train, cfg)))
-        nb = len(batch["image_name"])
-        rng = np.random.RandomState(6)
-        ins = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in (
-            (nb, 2, S, S), (nb, 8, 2 * S, 2 * S), (nb, 1, 8 * S, 8 * S))]
-        enc = {k: torch.from_numpy((2 * rng.randn(*s)).astype(np.float32))
-               for k, s in (("semantic_seg", (nb, img, img, 3)),
-                            ("endp_est", (nb, img, img, 1)))}
-        head = init_weights(build_heads(cfg), torch.Generator().manual_seed(
-            BRANCH_SEEDS[branch]))
-        nets = {"cpu": fixed_input_net(head, ins, enc)}
-        nets["cuda"] = copy.deepcopy(nets["cpu"]).cuda()
-        outs, recs, margin = {}, {}, None
-        for d, net in nets.items():
-            with torch.inference_mode():
-                out = net.eval()(None)
-                outs[d] = {k: v.float().cpu().numpy() for k, v in out.items()}
-                dec = to_numpy(decode_lanes(out, cfg))
-            if d == "cpu":
-                margin = decision_margin(dec, cfg, img)
-            maps = lane_maps_from_decode(host_decode_view(dec), cfg)
-            recs[d] = [lane_records(m) for m in maps["cls_offset_smooth"]]
-        check(margin > 1e-4, f"tiny {branch}: a decision {margin:.2e} from "
-              f"its threshold; choose another weight seed")
-        worst = max((float(np.abs(outs["cuda"][k] - outs["cpu"][k]).max()
-                           / max(1e-3, np.abs(outs["cpu"][k]).max())), k)
-                    for k in outs["cpu"])
-        check(worst[0] < 1e-5,
-              f"tiny {branch}: {worst[1]} rel-max {worst[0]:.3e} >= 1e-5")
-        n_rec = 0
-        for g, c in zip(recs["cuda"], recs["cpu"]):
-            check([(r["lane_id"], r["seq_len"]) for r in g]
-                  == [(r["lane_id"], r["seq_len"]) for r in c],
-                  f"tiny {branch}: lane records differ")
-            for a, b in zip(g, c):
-                sa, sb = np.asarray(a["seq"]), np.asarray(b["seq"])
-                check(np.array_equal(sa[:, [0, 2]], sb[:, [0, 2]]) and
-                      np.allclose(sa[:, 1], sb[:, 1], atol=1e-3),
-                      f"tiny {branch}: lane {a['lane_id']} differs")
-                n_rec += 1
-        check(n_rec > 0, f"tiny {branch}: no lane record decoded")
+    cfg = Config.fromfile(TINY)
+    cfg.merge_from_dict(BASE_TINY)
+    head_card_vs_cpu("tiny base head", cfg, BASE_SEED, root,
+                     os.path.join(log_root, "base"))
 
-        # three train steps from a seeded mid-training Adam state at a tenth
-        # of the config's lr, as phase 11
-        cfg.optimizer.lr = cfg.optimizer.lr / 10
-        cfg.scheduler.T_max = 1000
-        hp = head_hparams(cfg)
-        step = make_train_step(lambda o, b: column_proposal_loss(o, b, hp))
-        probe = copy.deepcopy(nets["cpu"]).train()
-        db = Runner(cfg, log_dir=os.path.join(log_root, branch),
-                    device="cpu")._device_batch(batch)
-        loss = column_proposal_loss(probe(None), db, hp)["loss"]
-        grads = torch.autograd.grad(loss, list(probe.parameters()),
-                                    allow_unused=True)
-        stats = {}
-        for d, net in nets.items():
-            state = create_train_state(net, cfg)
-            seed_adam(state, grads, seed=1)
-            dev_db = {k: v.to(d) for k, v in db.items()}
-            stats[d] = [step(state, dev_db) for _ in range(3)]
-        worst_loss = (0.0, "")
-        for i, (sc, sg) in enumerate(zip(stats["cpu"], stats["cuda"])):
-            for k in TERMS + ("loss",):
-                c, g = float(sc[k]), float(sg[k])
-                err = abs(g - c) / max(abs(c), 1e-12) if c or g else 0.0
-                check(err < 1e-6, f"tiny {branch} step {i} {k}: card {g} cpu "
-                      f"{c} (rel {err:.3e})")
-                worst_loss = max(worst_loss, (err, f"step {i} {k}"))
-        log(f"tiny {branch} card vs cpu: worst output rel-max "
-            f"{worst[0]:.3e} ({worst[1]}); {n_rec} lane records identical "
-            f"(columns to 1e-3 px), decisions at least {margin:.2e} from "
-            f"their thresholds; 3 train steps, losses cpu "
-            f"{[round(float(s['loss']), 6) for s in stats['cpu']]}, worst "
-            f"term rel {worst_loss[0]:.3e} ({worst_loss[1]})")
+    # the flag run: 3 steps of the tiny config with every flag, as phase 11
+    cfg = train_cfg(TINY, root)
+    cfg.merge_from_dict(FPN_FLAGS)
+    cfg.optimizer.lr = cfg.optimizer.lr / 10
+    cfg.scheduler.T_max = 1000
+    batch = next(iter(build_dataloader(cfg.dataset.train, cfg)))
+    runners = {d: Runner(cfg, log_dir=os.path.join(log_root, "flags", d),
+                         device=d) for d in ("cpu", "cuda")}
+    probe = copy.deepcopy(runners["cpu"].model).train()
+    db = runners["cpu"]._device_batch(batch)
+    loss = runners["cpu"]._loss_fn(probe(model_input(db)), db)["loss"]
+    grads = torch.autograd.grad(loss, list(probe.parameters()),
+                                allow_unused=True)
+    stats = {}
+    for d, r in runners.items():
+        seed_adam(r.state, grads, seed=1)
+        for st in r.state.optimizer.state.values():  # stored as optax does
+            st["exp_avg"] = st["exp_avg"].to(r.state.optimizer.mu_dtype)
+        stats[d] = [r.train_step(r.state, r._device_batch(batch))
+                    for _ in range(3)]
+    worst_loss = 0.0
+    for i, (sc, sg) in enumerate(zip(stats["cpu"], stats["cuda"])):
+        for k in TERMS + ("loss",):
+            c, g = float(sc[k]), float(sg[k])
+            err = abs(g - c) / max(abs(c), 1e-12) if c or g else 0.0
+            check(err < 1e-4, f"tiny flags step {i} {k}: card {g} cpu {c} "
+                  f"(rel {err:.3e})")
+            worst_loss = max(worst_loss, err)
+    sd_c = runners["cpu"].model.state_dict()
+    sd_g = runners["cuda"].model.state_dict()
+    worst = max((rel_max(sd_g[k], c), k) for k, c in sd_c.items()
+                if not k.endswith("num_batches_tracked"))
+    check(worst[0] < 2e-3, f"tiny flags: {worst[1]} rel-max {worst[0]:.3e} "
+          f">= 2e-3 after 3 steps")
+    log(f"tiny flags ({FPN_FLAGS}) training card vs cpu: losses per step "
+        f"cpu {[round(float(s['loss']), 6) for s in stats['cpu']]}, worst "
+        f"term rel {worst_loss:.3e}; parameters and BatchNorm buffers worst "
+        f"rel-max {worst[0]:.3e} ({worst[1]})")
+    del runners, probe
+
+    # the nine family backbones and the test Swin, eval and train mode
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 8, 48, 48)
+                         .astype(np.float32))
+    models = [(n, BACKBONE.get(n)(num_channels=8,
+                                  cfg={"featuremap_out_channel": 8}), x)
+              for n in FAMILY]
+    models.append(("Swin", BACKBONE.get("SwinTransformer")(**SWIN_TINY),
+                   torch.from_numpy(np.random.RandomState(1).rand(
+                       2, 3, 64, 64).astype(np.float32))))
+    for i, (name, m, inp) in enumerate(models):
+        m = init_weights(m, torch.Generator().manual_seed(i))
+        worst = 0.0
+        for train in (False, True):
+            cpu, card = m.train(train), copy.deepcopy(m).cuda()
+            with torch.no_grad():
+                want, got = cpu(inp), card(inp.cuda())
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            check(len(got) == len(want), f"{name}: outputs")
+            for g, w in zip(got, want):
+                worst = max(worst, rel_max(g, w))
+        check(worst < 1e-5, f"tiny {name} card vs cpu: rel-max {worst:.3e}")
+        log(f"tiny {name} card vs cpu, eval and train mode: rel-max "
+            f"{worst:.3e}")
 
 
 def main():
@@ -1905,6 +2225,12 @@ def main():
                 for b, counts in branches.items()}
         phase(17, phase_branch_card_vs_cpu, os.path.join(tmp, "tiny_branch"),
               os.path.join(tmp, "branch_tiny_logs"))
+        zoo_models = phase(18, phase_zoo_models, root, lidar_root, tmp)
+        k1["launches_zoo_models"] = {path: {how: c["bev_bin_mean"]
+                                            for how, c in counts.items()}
+                                     for path, counts in zoo_models.items()}
+        phase(19, phase_zoo_models_card_vs_cpu, os.path.join(tmp, "tiny_zoo2"),
+              os.path.join(tmp, "zoo2_tiny_logs"))
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

@@ -41,8 +41,11 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
     on: a plain ``state_dict``, a reference ``{net|state_dict|model: ...}``
     container, or a Runner checkpoint (its directory or ``state.pt``; the
     optimizer, scheduler and generator are not read), ``module.`` prefixes
-    stripped.  BatchNorm ``num_batches_tracked`` may be absent."""
+    stripped.  BatchNorm ``num_batches_tracked`` may be absent.  A 7x7
+    stem loads into an ``s2d_stem`` model through the exact kernel
+    transform (`models/resnet_fpn.py::load_s2d_stem`)."""
     from .engine.checkpoint import STATE_FILE
+    from .models.resnet_fpn import load_s2d_stem
 
     if os.path.isdir(path):
         path = os.path.join(path, STATE_FILE)
@@ -54,6 +57,7 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> torch.nn.Module:
                 break
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in ckpt.items()}
+    sd = load_s2d_stem(sd, model.state_dict())
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:

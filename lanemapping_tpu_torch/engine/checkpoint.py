@@ -87,17 +87,19 @@ def load_network_filtered(path: str, state: TrainState) -> TrainState:
     """Finetune load into ``state.model``: the weights of a checkpoint
     directory, a ``state.pt`` or a torch ``state_dict`` file (``net`` /
     ``state_dict`` / ``model`` containers and ``module.`` prefixes
-    accepted) whose shapes match; the rest keep their values."""
+    accepted) whose shapes match; the rest keep their values.  A 7x7 stem
+    goes into an ``s2d_stem`` model through the exact kernel transform."""
+    from ..models.resnet_fpn import load_s2d_stem
+
     ckpt = _read(path)
     for key in ("model", "net", "state_dict"):
         if isinstance(ckpt.get(key), dict):
             ckpt = ckpt[key]
             break
     own = state.model.state_dict()
-    keep = {}
-    for k, v in ckpt.items():
-        k = k[len("module."):] if k.startswith("module.") else k
-        if k in own and tuple(own[k].shape) == tuple(v.shape):
-            keep[k] = v
+    sd = load_s2d_stem({k[len("module."):] if k.startswith("module.") else k:
+                        v for k, v in ckpt.items()}, own)
+    keep = {k: v for k, v in sd.items()
+            if k in own and tuple(own[k].shape) == tuple(v.shape)}
     state.model.load_state_dict(keep, strict=False)
     return state

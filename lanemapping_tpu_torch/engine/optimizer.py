@@ -17,7 +17,9 @@ Schedules (``build_schedule``, a function of the step):
 - ``LambdaLR``: ``lr * gamma ** (step // steps_per_epoch)``;
 - SGD adds a linear warm-up 0 -> 1 over 5000 steps.
 
-``optimizer.mu_dtype`` (a bf16 first moment) is not ported and is refused.
+``optimizer.mu_dtype`` (a bf16 first moment, optax's ``mu_dtype``) takes
+``MuDtypeAdam``, a small optimizer that follows optax's ``scale_by_adam``
+step by step; without it the shipped configs keep ``torch.optim``'s.
 """
 
 from __future__ import annotations
@@ -51,20 +53,77 @@ def build_schedule(cfg) -> Callable[[int], float]:
     raise KeyError(f"unknown scheduler {sch.type}")
 
 
+class MuDtypeAdam(torch.optim.Optimizer):
+    """Adam, or AdamW with ``weight_decay``, as optax computes them with
+    ``mu_dtype`` (`optax/_src/transform.py::scale_by_adam`): the first
+    moment is stored in ``mu_dtype``, the second in float32.  Per step,
+    with g the float32 gradient:
+
+    - ``mu = (1 - b1) * g + b1 * mu_stored`` in float32, ``b1`` rounded to
+      ``mu_dtype`` first: JAX casts a Python float to the dtype of the
+      bf16 array it multiplies (0.9 becomes 0.8984375), and the jitted
+      step (XLA) keeps the product in float32, where an eager JAX call
+      would round it to bf16; ``nu = (1 - b2) * g^2 + b2 * nu``;
+    - the update ``mu / bc1 / (sqrt(nu / bc2) + eps)`` from the float32
+      moment, ``bc = 1 - b^count`` with the divisors in float32; AdamW adds
+      ``weight_decay * p``; then ``p - lr * update``;
+    - only then is ``mu`` cast to ``mu_dtype`` and stored.
+
+    The state keys are ``torch.optim.Adam``'s (``step``, ``exp_avg``,
+    ``exp_avg_sq``), so checkpoints and ``tools/from_jax`` treat both
+    alike."""
+
+    def __init__(self, params, lr: float, mu_dtype: torch.dtype,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                st["step"] += 1.0
+                t = float(st["step"])  # a CPU tensor: no device sync
+                mu = g * (1.0 - b1) + st["exp_avg"].float() * b1_mu
+                nu = (g * g) * (1.0 - b2) + st["exp_avg_sq"] * b2
+                u = (mu / (1.0 - b1 ** t)) / ((nu / (1.0 - b2 ** t)).sqrt()
+                                              + eps)
+                if wd:
+                    u = u + p * wd
+                p.sub_(u * lr)
+                st["exp_avg"] = mu.to(self.mu_dtype)
+                st["exp_avg_sq"] = nu
+        return None
+
+
 def build_optimizer(cfg, params):
     """(optimizer, ``LambdaLR`` scheduler) over ``params``."""
-    if cfg.optimizer.get("mu_dtype", None) is not None:
-        raise NotImplementedError(
-            "optimizer.mu_dtype is not ported to lanemapping_tpu_torch")
     schedule = build_schedule(cfg)
     base_lr = cfg.optimizer.lr
     opt_type = cfg.optimizer.type
-    if opt_type == "Adam":
+    mu_dtype = cfg.optimizer.get("mu_dtype", None)
+    wd = cfg.optimizer.get("weight_decay", 1e-2)
+    if mu_dtype is not None and opt_type in ("Adam", "AdamW"):
+        opt = MuDtypeAdam(params, lr=base_lr,
+                          mu_dtype=getattr(torch, str(mu_dtype)),
+                          weight_decay=wd if opt_type == "AdamW" else 0.0)
+    elif opt_type == "Adam":
         opt = torch.optim.Adam(params, lr=base_lr)
     elif opt_type == "AdamW":
-        opt = torch.optim.AdamW(
-            params, lr=base_lr,
-            weight_decay=cfg.optimizer.get("weight_decay", 1e-2))
+        opt = torch.optim.AdamW(params, lr=base_lr, weight_decay=wd)
     elif opt_type == "SGD":
         opt = torch.optim.SGD(params, lr=base_lr,
                               momentum=cfg.optimizer.get("momentum", 0.9))

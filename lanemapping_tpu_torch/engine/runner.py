@@ -19,9 +19,14 @@ It trains, validates and exports every net and head of the shipped
 configs: Detector1stage with ColumnProposal2 (lane validation and lane
 JSONs), with RowSharNotReducRef or GridSeg (grid validation and the KLane
 export driver; also under the legacy Detector), and the Segmentor
-(segmentation validation and its metrics driver).  Any other combination is
-refused.  TensorBoard is left out (the JAX package skips it when it is
-absent).
+(segmentation validation and its metrics driver), and RowSharNotReducRef_Base
+as the JAX Runner takes it: ColumnProposal2's loss and lane validation.  Any
+other combination is refused.  With ``cfg.tensorboard`` every logged record
+also goes to TensorBoard scalars, skipped when ``torch.utils.tensorboard``
+does not import, as the JAX Runner skips them.  The JAX Runner tries the
+import at its first record; the port asks for it, because where
+tensorboard finds TensorFlow installed the import takes ~20 s and ~1 GB
+per process.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ KLANE_HEADS = ("RowSharNotReducRef", "GridSeg")
 # (net, head) pairs the Runner trains and validates; the Segmentor has no
 # head
 PORTED = {("Detector1stage", "ColumnProposal2"),
+          ("Detector1stage", "RowSharNotReducRef_Base"),
           ("Detector1stage", "RowSharNotReducRef"),
           ("Detector1stage", "GridSeg"), ("Detector", "RowSharNotReducRef"),
           ("Detector", "GridSeg"), ("Segmentor", None)}
@@ -157,6 +163,26 @@ class Runner:
                   for k, v in record.items()}
         with open(os.path.join(self.log_dir, f"{tag}.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
+        self._tb_log(tag, record)
+
+    def _tb_log(self, tag: str, record: Dict):
+        """Optional TensorBoard scalars (reference `runner.py:84,188-192`,
+        JAX `runner.py:288-302`); off unless ``cfg.tensorboard``, and when
+        tensorboard does not import."""
+        if not self.cfg.get("tensorboard", False):
+            return
+        if not hasattr(self, "_tb"):
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(self.log_dir)
+            except Exception:
+                self._tb = None
+        if self._tb is None:
+            return
+        step = int(record.get("iter", record.get("epoch", 0)))
+        for k, v in record.items():
+            if isinstance(v, float) and k not in ("iter", "epoch"):
+                self._tb.add_scalar(f"{tag}/{k}", v, step)
 
     # -- batches -------------------------------------------------------------
     def _mono_squeeze(self, v: np.ndarray) -> bool:

@@ -94,9 +94,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``DenseGeneral`` kernels and the lane-batched linears of
     ``PerLaneConvHead`` (bound 1/sqrt(fan_in)), unit scale and zero shift
     for the norms; the embeddings as the flax initializers draw them: unit
-    normal for the position, lane, proposal (``emb_{i}``) and query
-    embeddings, N(0, 0.02^2) for the query decoder's ``img_pe``.
-    BatchNorm running statistics stay at (0, 1)."""
+    normal for the position, lane, proposal (``emb_{i}``, ``prop_emb``) and
+    query embeddings, N(0, 0.02^2) for the query decoder's ``img_pe`` and
+    Swin's relative-position table ``rel_bias``.  The ResnetFPN family's
+    transposed convolutions are ``Conv2d``s by their parameters and are
+    drawn as such.  BatchNorm running statistics stay at (0, 1)."""
     from .transformer import DenseGeneral
     with torch.no_grad():
         for m in model.modules():
@@ -115,10 +117,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("pos_embedding", "lane_emb", "query_embed") \
-                    or re.fullmatch(r"emb_\d+", leaf):
+            if leaf in ("pos_embedding", "lane_emb", "query_embed",
+                        "prop_emb") or re.fullmatch(r"emb_\d+", leaf):
                 p.normal_(generator=generator)
-            elif leaf == "img_pe":
+            elif leaf in ("img_pe", "rel_bias"):
                 p.normal_(0.0, 0.02, generator=generator)
     return model
 

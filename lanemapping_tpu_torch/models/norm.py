@@ -15,6 +15,10 @@ training they differ from ``nn.BatchNorm*d`` in two ways, both flax's
   into the normalising call, so a bf16 input never meets float32 buffers
   there.
 
+``frozen_batch_stats`` keeps the running statistics of a module's
+BatchNorms from moving (a checkpointed stage's recompute, where flax's
+``nn.remat`` moves them once per step).
+
 ``Dropout`` draws its mask from ``generator`` when one is set (the Runner
 sets the train state's generator, seeded from ``cfg.seed``), else from
 torch's default generator.
@@ -22,6 +26,7 @@ torch's default generator.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -30,16 +35,19 @@ import torch.nn.functional as F
 
 
 class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
+    frozen_stats = False
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = [0] + list(range(2, x.dim()))
-        with torch.no_grad():
-            var, mean = torch.var_mean(x32, dim=dims, correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        if not self.frozen_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x32, dim=dims, correction=0)
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
         y = F.batch_norm(x32, None, None, self.weight.to(x32.dtype),
                          self.bias.to(x32.dtype), training=True, eps=self.eps)
         return y.to(x.dtype)
@@ -51,6 +59,21 @@ class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
     pass
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module, frozen: bool = True):
+    """Within the block, the BatchNorms of ``module`` (if ``frozen``)
+    normalise with batch statistics but leave their running ones alone."""
+    norms = [m for m in module.modules() if isinstance(m, _FlaxBatchNorm)]
+    before = [m.frozen_stats for m in norms]
+    for m in norms:
+        m.frozen_stats = m.frozen_stats or frozen
+    try:
+        yield
+    finally:
+        for m, f in zip(norms, before):
+            m.frozen_stats = f
 
 
 class Dropout(nn.Dropout):

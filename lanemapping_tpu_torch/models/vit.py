@@ -81,13 +81,17 @@ def correlator_out_channels(cfg) -> int:
     ``dim / p^2`` (``output_channels`` with its shared MLP), or the
     encoder's ``featuremap_out_channel`` when no correlator runs (none
     configured, ``Dummy``, or ``vit_seg`` off under Detector1stage).  The
-    patch is VitSegNet's ``patch_h_size`` or MixSegNet's ``patch_size``.
-    flax infers these widths at init; torch needs them up front."""
+    patch is VitSegNet's ``patch_h_size`` or MixSegNet's ``patch_size``; a
+    ResnetFPN-family correlator returns its concatenated up-paths.  flax
+    infers these widths at init; torch needs them up front."""
+    from .resnet_fpn_family import FAMILY, family_out_channels
     enc = cfg.get("featuremap_out_channel", 64)
     if "backbone" not in cfg or cfg.backbone.type == "Dummy" or (
             cfg.net.type == "Detector1stage" and not cfg.get("vit_seg", True)):
         return enc
     bb = cfg.backbone
+    if bb.type in FAMILY:
+        return family_out_channels(bb.type, bb.get("num_channels", 64))
     if bb.get("is_with_shared_mlp", False):
         return bb.get("output_channels", 8)
     p = bb.get("patch_h_size", bb.get("patch_size", 8))

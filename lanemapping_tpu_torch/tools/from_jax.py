@@ -9,7 +9,10 @@ a reference ``.pth`` loads the same way without this module.
 The LiDAR encoder has no torch reference (the reference's spconv encoder
 has no dense counterpart), nor have the MixSegNet correlator, the legacy
 ResNet projector, the KLane heads and ColumnProposal2's query decoder
-here: their torch names are the flax module names.  ``PerLaneConvHead``
+here, nor the modules with no torch reference at hand (the
+RowSharNotReducRef_Base head, the ResnetFPN family, Swin, the FPN's
+``s2d_stem`` and ``endp_head_extra`` layers): their torch names are the
+flax module names.  ``PerLaneConvHead``
 keeps flax's ``[N, I, O]`` weights, the query decoder's attention flax's
 DenseGeneral kernels.  ColumnProposal2's ``column_att`` branch keeps the
 reference's names, with one ``emb_{i}`` per row of flax's ``prop_emb``.
@@ -112,6 +115,7 @@ def _postprojector2_rules(resnet_layers) -> list:
     R = []
     enc, fpn = "pcencoder", "pcencoder.fpn"
     R += [(f"{fpn}.conv1.weight", f"{enc}/conv1/kernel", _conv_inv),
+          (f"{fpn}.conv1_s2d.weight", f"{enc}/conv1_s2d/kernel", _conv_inv),
           (f"{fpn}.bn1", f"{enc}/bn1", "bn"),
           (f"{fpn}.out.weight", f"{enc}/out_conv/kernel", _conv_inv)]
     for li, nb in enumerate(resnet_layers, start=1):
@@ -119,10 +123,11 @@ def _postprojector2_rules(resnet_layers) -> list:
     for name in ("toplayer", "smooth1", "smooth2", "smooth3", "latlayer1",
                  "latlayer2", "latlayer3", "semantic_branch",
                  "semantic_branch2", "conv2", "conv3", "feature_layer",
-                 "output_layer_binary_seg", "output_layer_endp"):
+                 "output_layer_binary_seg", "output_layer_endp",
+                 "endp_extra"):
         R += [(f"{fpn}.{name}.weight", f"{enc}/{name}/kernel", _conv_inv),
               (f"{fpn}.{name}.bias", f"{enc}/{name}/bias", None)]
-    for gn in ("gn11", "gn12", "gn21", "gn22"):
+    for gn in ("gn11", "gn12", "gn21", "gn22", "gn_endp_extra"):
         R += [(f"{fpn}.{gn}.weight", f"{enc}/{gn}/scale", None),
               (f"{fpn}.{gn}.bias", f"{enc}/{gn}/bias", None)]
     return R
@@ -273,6 +278,77 @@ def _row_shar_rules(depth: int) -> list:
     return R + _dense_rules(f"{hd}.from_token", f"{hd}/from_token")
 
 
+def _row_shar_base_rules(depth: int, row_depth: int) -> list:
+    """RowSharNotReducRef_Base: flax names; ``fc_reg1``/``fc_reg2`` only in
+    ``endp_mode="Regr"`` (skipped when absent)."""
+    hd = "heads"
+    R = []
+    for conv in ("gen_prop_conv1", "gen_prop_conv2", "common_conv1",
+                 "common_conv2", "upsample_conv1", "upsample_conv2",
+                 "endpoint_conv1", "endpoint_conv2", "orient_conv1",
+                 "orient_conv2", "bi_seg_proposal"):
+        R += _conv_rules(f"{hd}.{conv}", f"{hd}/{conv}")
+    R += [(f"{hd}.{bn}", f"{hd}/{bn}", "bn")
+          for bn in ("gen_prop_bn", "common_bn1", "common_bn2",
+                     "upsample_bn1", "upsample_bn2", "endpoint_bn",
+                     "orient_bn", "ext2_bn", "cls2_bn", "offset2_bn")]
+    for dense in ("to_token", "proposal_confidence", "line_expand",
+                  "fc_reg1", "fc_reg2", "to_token_row_seg_att",
+                  "ext2_fc1", "ext2_fc2", "cls2_fc1", "cls2_fc2",
+                  "offset2_fc1", "offset2_fc2"):
+        R += _dense_rules(f"{hd}.{dense}", f"{hd}/{dense}")
+    R += _ln_rules(f"{hd}.tr_lane_norm", f"{hd}/tr_lane_norm")
+    R += _ln_rules(f"{hd}.tr_row_norm", f"{hd}/tr_row_norm")
+    R += [(f"{hd}.prop_emb", f"{hd}/prop_emb", None)]
+    R += _transformer_rules(f"{hd}.tr_lane_correlator",
+                            f"{hd}/tr_lane_correlator", depth)
+    return R + _transformer_rules(f"{hd}.tr_row_correlator",
+                                  f"{hd}/tr_row_correlator", row_depth)
+
+
+def family_rules() -> list:
+    """The ResnetFPN family (flax names; the transposed convolutions keep
+    the flax kernel unflipped, so they map as convolutions).  Rules for
+    every stage, block kind and residual; the absent ones are skipped."""
+    t = j = "backbone"
+    R = []
+    for s in range(5):
+        R += _conv_rules(f"{t}.block{s}_conv", f"{j}/block{s}_conv")
+        R += [(f"{t}.block{s}_bn", f"{j}/block{s}_bn", "bn")]
+        R += _conv_rules(f"{t}.up{s}", f"{j}/up{s}")
+        for r in range(2):
+            tb, jb = f"{t}.block{s}_res{r}", f"{j}/block{s}_res{r}"
+            for conv in ("conv1", "conv2", "conv_cbam"):
+                R += _conv_rules(f"{tb}.{conv}", f"{jb}/{conv}")
+            R += [(f"{tb}.bn1", f"{jb}/bn1", "bn"),
+                  (f"{tb}.bn2", f"{jb}/bn2", "bn")]
+            R += _dense_rules(f"{tb}.mlp1", f"{jb}/mlp1")
+            R += _dense_rules(f"{tb}.mlp2", f"{jb}/mlp2")
+    return R
+
+
+def swin_rules(depths, prefix: str = "backbone") -> list:
+    """SwinTransformer of stage ``depths`` (flax names)."""
+    t, j = prefix, prefix.replace(".", "/")
+    R = _conv_rules(f"{t}.patch_embed", f"{j}/patch_embed")
+    R += _ln_rules(f"{t}.patch_norm", f"{j}/patch_norm")
+    for i, depth in enumerate(depths):
+        for d in range(depth):
+            tb, jb = f"{t}.stage{i}_block{d}", f"{j}/stage{i}_block{d}"
+            R += _ln_rules(f"{tb}.norm1", f"{jb}/norm1")
+            R += _ln_rules(f"{tb}.norm2", f"{jb}/norm2")
+            R += _dense_rules(f"{tb}.attn.qkv", f"{jb}/attn/qkv")
+            R += _dense_rules(f"{tb}.attn.proj", f"{jb}/attn/proj")
+            R += [(f"{tb}.attn.rel_bias", f"{jb}/attn/rel_bias", None)]
+            R += _dense_rules(f"{tb}.fc1", f"{jb}/fc1")
+            R += _dense_rules(f"{tb}.fc2", f"{jb}/fc2")
+        R += _ln_rules(f"{t}.out_norm{i}", f"{j}/out_norm{i}")
+        R += _ln_rules(f"{t}.merge{i}.norm", f"{j}/merge{i}/norm")
+        R += [(f"{t}.merge{i}.reduction.weight",
+               f"{j}/merge{i}/reduction/kernel", _dense_inv)]
+    return R
+
+
 _HEAD_CONVS = {"GridSeg": ("conf_fc1", "conf_fc2", "cls_fc1", "cls_fc2"),
                "PixelSeg": ("cls_fc0", "cls_fc1", "cls_fc2")}
 
@@ -280,14 +356,17 @@ _HEAD_CONVS = {"GridSeg": ("conf_fc1", "conf_fc2", "cls_fc1", "cls_fc2"),
 def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
                 pcencoder="PostProjector2", backbone="VitSegNet",
                 head="ColumnProposal2", head_depth=1, column_branch=None,
-                num_prop=72, pool_stages=1) -> list:
+                num_prop=72, pool_stages=1, row_depth=1,
+                swin_depths=(2, 2, 6, 2)) -> list:
     """(torch_key, flax_path, inverse layout) triples for a net of the
     given encoder, correlator (``None`` for none) and head (``None`` for
     the Segmentor); ``vit_depth`` is the correlator's depth and
     ``head_depth`` the row head's lane-correlator depth or that of
     ColumnProposal2's ``column_branch`` (``"column_att"`` with
     ``num_prop`` proposals and ``pool_stages`` stride-2 stages, or
-    ``"column_transformer_decoder"``).  Rules whose flax
+    ``"column_transformer_decoder"``); ``row_depth`` is the depth of
+    RowSharNotReducRef_Base's row transformer and ``swin_depths`` Swin's
+    stage depths.  Rules whose flax
     path is absent (a missing trunk stage, an unused lateral, a projection
     the encoder does not have, a shared MLP the correlator does not use)
     are skipped by ``params_from_jax``."""
@@ -299,6 +378,10 @@ def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
         R += _vit_rules(vit_depth)
     elif backbone == "MixSegNet":
         R += _mixsegnet_rules(vit_depth)
+    elif backbone == "SwinTransformer":
+        R += swin_rules(swin_depths)
+    elif backbone is not None and backbone.startswith("ResnetFPN"):
+        R += family_rules()
     if head == "ColumnProposal2":
         R += _column_proposal_rules()
         if column_branch == "column_att":
@@ -307,6 +390,8 @@ def build_rules(resnet_layers=(3, 4, 6, 3), vit_depth=3,
             R += _column_decoder_rules(head_depth)
     elif head == "RowSharNotReducRef":
         R += _row_shar_rules(head_depth)
+    elif head == "RowSharNotReducRef_Base":
+        R += _row_shar_base_rules(head_depth, row_depth)
     elif head in _HEAD_CONVS:
         for name in _HEAD_CONVS[head]:
             R += _conv_rules(f"heads.{name}", f"heads/{name}")
@@ -368,7 +453,10 @@ def rules_for(cfg) -> list:
         num_prop=cfg.heads.get("num_prop", 72) if not segmentor else 0,
         pool_stages=column_pool_stages(cfg.heads.row_size,
                                        cfg.heads.num_prop)
-        if branch == "column_att" else 0)
+        if branch == "column_att" else 0,
+        row_depth=cfg.heads.get("row_tr_depth", 1) if not segmentor else 0,
+        swin_depths=tuple(cfg.backbone.get("depths", (2, 2, 6, 2)))
+        if has_bb else ())
 
 
 def load_jax_weights(model: torch.nn.Module, params: Dict, batch_stats: Dict,
@@ -391,7 +479,9 @@ def adam_state_from_jax(state, mu: Dict, nu: Dict, count: int,
     ``nu`` (numpy trees shaped like the flax params, of
     ``ScaleByAdamState``) become each parameter's ``exp_avg`` and
     ``exp_avg_sq``, ``count`` its ``step`` and the scheduler's position
-    (optax's schedule counts the same updates).  Every parameter must be
+    (optax's schedule counts the same updates).  Under ``optimizer.
+    mu_dtype`` (`engine/optimizer.py::MuDtypeAdam`) ``exp_avg`` is stored
+    in that dtype, as optax stores ``mu``.  Every parameter must be
     covered."""
     rules = rules_for(cfg)
     m_sd = params_from_jax(mu, {}, rules)
@@ -400,10 +490,12 @@ def adam_state_from_jax(state, mu: Dict, nu: Dict, count: int,
     missing = sorted(set(named) - set(m_sd)) + sorted(set(named) - set(v_sd))
     if missing:
         raise KeyError(f"the Adam state does not cover {missing[:8]}")
+    mu_dtype = getattr(state.optimizer, "mu_dtype", None)
     for name, p in named.items():
         st = state.optimizer.state[p]
         st["step"] = torch.tensor(float(count))
-        st["exp_avg"] = torch.zeros_like(p).copy_(m_sd[name].view(p.shape))
+        st["exp_avg"] = torch.zeros_like(p, dtype=mu_dtype or p.dtype).copy_(
+            m_sd[name].view(p.shape))
         st["exp_avg_sq"] = torch.zeros_like(p).copy_(
             v_sd[name].view(p.shape))
     sched = state.scheduler

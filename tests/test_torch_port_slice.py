@@ -146,7 +146,9 @@ def test_import_loads_no_jax_and_no_jax_package():
         "       'models.row_head', 'decode.row_decode', 'decode.seg_infer',\n"
         "       'utils.vis_utils', 'tools.infer', 'utils.io_utils',\n"
         "       'tools.img2pc', 'tools.merge_lines', 'tools.convert_data',\n"
-        "       'models.transformer', 'models.column_head']\n"
+        "       'models.transformer', 'models.column_head',\n"
+        "       'models.row_head_base', 'models.resnet_fpn_family',\n"
+        "       'models.swin', 'utils.logger']\n"
         "missing = [m for m in new\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
@@ -162,6 +164,20 @@ def test_import_loads_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "clean" in out.stdout
+
+
+def test_registries_hold_the_jax_package_names():
+    """The port builds every model the JAX package registers: the same
+    names in BACKBONE, HEADS, PCENCODER and NET (24 in all)."""
+    import lanemapping_tpu.registry as jr
+    import lanemapping_tpu_torch.registry as tr
+
+    n = 0
+    for reg in ("BACKBONE", "HEADS", "PCENCODER", "NET"):
+        names = set(getattr(tr, reg).module_dict)
+        assert names == set(getattr(jr, reg).module_dict), reg
+        n += len(names)
+    assert n == 24
 
 
 def test_entry_points_default_to_cuda(slice_setup, tmp_path):

@@ -133,12 +133,19 @@ def test_optimizer_updates_match_optax(opt_type):
 
 
 def test_mu_dtype_is_refused():
-    from lanemapping_tpu_torch.engine.optimizer import build_optimizer
+    """``optimizer.mu_dtype`` was refused until the port had an Adam with a
+    bf16 first moment; it now builds ``MuDtypeAdam`` (held to optax in
+    `test_torch_port_engine_gaps.py`), and a config without it keeps
+    ``torch.optim.Adam``."""
+    from lanemapping_tpu_torch.engine.optimizer import (MuDtypeAdam,
+                                                        build_optimizer)
 
     _, cfg_t = configs(TINY)
+    p = [torch.zeros(1, requires_grad=True)]
+    assert type(build_optimizer(cfg_t, p)[0]) is torch.optim.Adam
     cfg_t.optimizer["mu_dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        build_optimizer(cfg_t, [torch.zeros(1, requires_grad=True)])
+    opt = build_optimizer(cfg_t, p)[0]
+    assert isinstance(opt, MuDtypeAdam) and opt.mu_dtype == torch.bfloat16
 
 
 # -- data and metrics -------------------------------------------------------

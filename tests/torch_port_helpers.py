@@ -26,16 +26,20 @@ def configs(path=TINY):
     return lm.Config.fromfile(path), lmt.Config.fromfile(path)
 
 
-def random_variables(module, example_args, seed):
+def random_variables(module, example_args, seed, init_kw=None,
+                     eager=False):
     """Seeded {params, batch_stats} numpy trees shaped like
-    ``module.init(key, *example_args, train=False)``: kernels ~ N(0,
+    ``module.init(key, *example_args, **init_kw)`` (``init_kw`` defaults
+    to ``train=False``; ``eager`` runs the init instead of tracing it, for
+    a module that cannot be traced): kernels ~ N(0,
     1/fan_in), biases ~ N(0, 0.1^2), norm scales ~ U(0.8, 1.2), BatchNorm
     running means ~ N(0, 0.1^2) and variances ~ U(0.6, 1.4), embeddings
     ~ N(0, 1), the lane-batched ``[N, I, O]`` weights of the row head's
     ``PerLaneConvHead`` ~ N(0, 1/I)."""
-    shapes = jax.eval_shape(
-        lambda k: module.init(k, *example_args, train=False),
-        jax.random.PRNGKey(0))
+    init_kw = {"train": False} if init_kw is None else init_kw
+    init = lambda k: module.init(k, *example_args, **init_kw)  # noqa: E731
+    shapes = init(jax.random.PRNGKey(0)) if eager \
+        else jax.eval_shape(init, jax.random.PRNGKey(0))
     rng = np.random.RandomState(seed)
 
     def draw(path, s):
