@@ -124,11 +124,14 @@ or outside a checkout.  Phases, each of which fails the run:
 18. the rest of the model zoo at full width: the flagship with
    ``heads.type=RowSharNotReducRef_Base`` (the head's default token widths,
    bf16, batch 8), ``tools/stream_map --from-las`` over phase 4's clouds
-   (K1's launch count > 0; lane JSONs and head maps checked as in phase 4),
+   (K1 launched once per batch and once for the warm-up; lane JSONs and
+   head maps checked as in phase 4),
    then ``Runner.train(max_iters=3)`` over phase 7's dataset; the flagship
    trained 3 steps with ``s2d_stem``, ``endp_head_extra``, ``remat`` and
    ``optimizer.mu_dtype=bfloat16``, then 3 with ``remat_policy=dots``
-   (the trunk checkpointed, the flags and the bf16-moment Adam present);
+   (the trunk checkpointed, the flags and the bf16-moment Adam present;
+   one step of that Adam timed against ``torch.optim.Adam`` on the same
+   parameters);
    an s2d stem with a loaded 7x7 kernel against the 7x7 conv at
    [8,3,1152,1152] float32, TF32 off, within rel-max 1e-5; the nine
    ResnetFPN backbones (``num_channels=64``) at the flagship's correlator
@@ -1906,6 +1909,34 @@ def fwd_bwd(model, x, iters=3):
     return a.elapsed_time(b) / iters, torch.cuda.max_memory_allocated() / 2**30
 
 
+def optimizer_step_ms(runner, iters=5):
+    """ms of one step of the Runner's optimizer and of ``torch.optim.Adam``
+    (foreach) over the same parameters with seeded gradients, from CUDA
+    events after a warm-up step.  It moves the parameters: call it on a
+    Runner that is thrown away."""
+    import torch
+
+    params = [p for p in runner.model.parameters() if p.requires_grad]
+    dev = params[0].device
+    g = torch.Generator(device=dev).manual_seed(0)
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=g, device=dev) * 1e-3
+    out = {"params": len(params), "numel": sum(p.numel() for p in params)}
+    for name, opt in (("mu_dtype_adam", runner.state.optimizer),
+                      ("torch_adam", torch.optim.Adam(params, lr=1e-4,
+                                                      foreach=True))):
+        opt.step()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            opt.step()
+        b.record()
+        b.synchronize()
+        out[name] = a.elapsed_time(b) / iters
+    return out
+
+
 def phase_zoo_models(las_root, lidar_root, tmp):
     """Phase 18: the slice's models at full width on the card.  Returns
     {path: launch counts}."""
@@ -1931,8 +1962,11 @@ def phase_zoo_models(las_root, lidar_root, tmp):
                            "--from-las", "--batch", str(B), "--out", out,
                            "--seed", "0", "--bench-json"])
     serving = read_launches()
-    check(serving["bev_bin_mean"] > 0,
-          "the Base head's serving path never launched K1")
+    # once per batch, and once for the warm-up on the first batch
+    check(serving["bev_bin_mean"] == math.ceil(N_CLOUDS / B) + 1,
+          f"the Base head's serving path launched K1 "
+          f"{serving['bev_bin_mean']} times for {N_CLOUDS} clouds at batch "
+          f"{B}")
     check(rec["n_tiles"] == N_CLOUDS and rec["dtype"] == "bfloat16",
           f"base head: {rec['n_tiles']} tiles in {rec['dtype']}")
     names, n_lanes = check_lane_jsons(rec["lanes_dir"], N_CLOUDS)
@@ -1978,6 +2012,13 @@ def phase_zoo_models(las_root, lidar_root, tmp):
                   and isinstance(probe.state.optimizer, MuDtypeAdam),
                   "flags: s2d stem, endpoint extra or bf16-moment Adam "
                   "missing")
+            adam_ms = optimizer_step_ms(probe)
+            log(f"flags: one optimizer step over the flagship's "
+                f"{adam_ms['params']} parameter tensors "
+                f"({adam_ms['numel']} values), ms (CUDA events, mean of 5 "
+                f"after a warm-up): bf16-moment MuDtypeAdam "
+                f"{adam_ms['mu_dtype_adam']:.4f}, torch.optim.Adam "
+                f"(foreach) {adam_ms['torch_adam']:.4f}")
         del probe, fpn
         s_step, peak, training, recs = train_three_steps(
             name, cfg, os.path.join(tmp, "train_" + name.replace(" ", "_")))

@@ -71,7 +71,9 @@ class MuDtypeAdam(torch.optim.Optimizer):
 
     The state keys are ``torch.optim.Adam``'s (``step``, ``exp_avg``,
     ``exp_avg_sq``), so checkpoints and ``tools/from_jax`` treat both
-    alike."""
+    alike.  Each arithmetic step is one ``torch._foreach_*`` call over
+    every parameter of a group, in the order written above, so each
+    float32 rounding is the per-tensor formula's."""
 
     def __init__(self, params, lr: float, mu_dtype: torch.dtype,
                  betas=(0.9, 0.999), eps: float = 1e-8,
@@ -83,29 +85,40 @@ class MuDtypeAdam(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
             b1, b2 = group["betas"]
             lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
             b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad.float()
-                st = self.state[p]
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
                 if not st:
                     st["step"] = torch.tensor(0.0)
                     st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
                     st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
                 st["step"] += 1.0
-                t = float(st["step"])  # a CPU tensor: no device sync
-                mu = g * (1.0 - b1) + st["exp_avg"].float() * b1_mu
-                nu = (g * g) * (1.0 - b2) + st["exp_avg_sq"] * b2
-                u = (mu / (1.0 - b1 ** t)) / ((nu / (1.0 - b2 ** t)).sqrt()
-                                              + eps)
-                if wd:
-                    u = u + p * wd
-                p.sub_(u * lr)
-                st["exp_avg"] = mu.to(self.mu_dtype)
-                st["exp_avg_sq"] = nu
+            ts = [float(st["step"]) for st in states]  # CPU: no device sync
+            g = [p.grad.float() for p in params]
+            mu = torch._foreach_mul([st["exp_avg"].float() for st in states],
+                                    b1_mu)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
+            gg = torch._foreach_mul(g, g)
+            torch._foreach_mul_(gg, 1.0 - b2)
+            nu = torch._foreach_mul([st["exp_avg_sq"] for st in states], b2)
+            torch._foreach_add_(nu, gg)
+            u = torch._foreach_div(mu, [1.0 - b1 ** t for t in ts])
+            den = torch._foreach_div(nu, [1.0 - b2 ** t for t in ts])
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(u, den)
+            if wd:
+                torch._foreach_add_(u, torch._foreach_mul(params, wd))
+            torch._foreach_mul_(u, lr)
+            torch._foreach_sub_(params, u)
+            for st, m, n in zip(states, mu, nu):
+                st["exp_avg"] = m.to(self.mu_dtype)
+                st["exp_avg_sq"] = n
         return None
 
 
@@ -116,9 +129,14 @@ def build_optimizer(cfg, params):
     opt_type = cfg.optimizer.type
     mu_dtype = cfg.optimizer.get("mu_dtype", None)
     wd = cfg.optimizer.get("weight_decay", 1e-2)
+    if mu_dtype is not None:
+        # jnp.dtype refuses a name that is not a dtype the same way
+        mu_dtype = getattr(torch, str(mu_dtype), None)
+        if not isinstance(mu_dtype, torch.dtype):
+            raise TypeError(f"optimizer.mu_dtype="
+                            f"{cfg.optimizer.mu_dtype!r} names no dtype")
     if mu_dtype is not None and opt_type in ("Adam", "AdamW"):
-        opt = MuDtypeAdam(params, lr=base_lr,
-                          mu_dtype=getattr(torch, str(mu_dtype)),
+        opt = MuDtypeAdam(params, lr=base_lr, mu_dtype=mu_dtype,
                           weight_decay=wd if opt_type == "AdamW" else 0.0)
     elif opt_type == "Adam":
         opt = torch.optim.Adam(params, lr=base_lr)

@@ -21,12 +21,9 @@ JSONs), with RowSharNotReducRef or GridSeg (grid validation and the KLane
 export driver; also under the legacy Detector), and the Segmentor
 (segmentation validation and its metrics driver), and RowSharNotReducRef_Base
 as the JAX Runner takes it: ColumnProposal2's loss and lane validation.  Any
-other combination is refused.  With ``cfg.tensorboard`` every logged record
-also goes to TensorBoard scalars, skipped when ``torch.utils.tensorboard``
-does not import, as the JAX Runner skips them.  The JAX Runner tries the
-import at its first record; the port asks for it, because where
-tensorboard finds TensorFlow installed the import takes ~20 s and ~1 GB
-per process.
+other combination is refused.  Every logged record also goes to
+TensorBoard scalars, skipped when ``torch.utils.tensorboard`` does not
+import, as in the JAX Runner.
 """
 
 from __future__ import annotations
@@ -167,10 +164,8 @@ class Runner:
 
     def _tb_log(self, tag: str, record: Dict):
         """Optional TensorBoard scalars (reference `runner.py:84,188-192`,
-        JAX `runner.py:288-302`); off unless ``cfg.tensorboard``, and when
-        tensorboard does not import."""
-        if not self.cfg.get("tensorboard", False):
-            return
+        JAX `runner.py:288-302`); skipped when tensorboard does not
+        import."""
         if not hasattr(self, "_tb"):
             try:
                 from torch.utils.tensorboard import SummaryWriter

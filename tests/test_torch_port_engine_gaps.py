@@ -14,8 +14,8 @@
   step of both: the tiny config's parameters within rel-max 1e-6;
 - ``utils/logger.py``: ``MetricWriter``, ``trace_span`` inside a torch
   profile, ``start/stop_profiler_trace``;
-- the Runner's TensorBoard scalars under ``cfg.tensorboard``, and its
-  records when tensorboard does not import.
+- the Runner's TensorBoard scalars, and its records when tensorboard does
+  not import.
 """
 
 import json
@@ -66,6 +66,9 @@ def test_mu_dtype_adam_matches_optax(opt_type):
     params = [torch.nn.Parameter(torch.from_numpy(a.copy())) for a in init]
     opt, sched = build_optimizer(cfg_t, params)
     assert isinstance(opt, MuDtypeAdam) and opt.mu_dtype == torch.bfloat16
+    del cfg_t.optimizer["mu_dtype"]  # without it, torch.optim's own
+    assert type(build_optimizer(cfg_t, params)[0]) is getattr(
+        torch.optim, opt_type)
     with jax.enable_x64(True):
         update = jitted_update(jax_opt(cfg_j))
         jp = [jnp.asarray(a) for a in init]
@@ -177,13 +180,11 @@ def test_runner_tensorboard_scalars(tmp_path, monkeypatch):
     fake = types.ModuleType("torch.utils.tensorboard")
     fake.SummaryWriter = Writer
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", fake)
-    runner = Runner(cfg, log_dir=str(tmp_path / "a"), device="cpu")
-    runner._log("train", {"epoch": 0, "iter": 3, "loss": 0.5})
-    assert written == []  # off unless asked for
-    cfg.tensorboard = True
     runner = Runner(cfg, log_dir=str(tmp_path / "b"), device="cpu")
     runner._log("train", {"epoch": 0, "iter": 3, "loss": 0.5})
-    assert written == [("dir", str(tmp_path / "b")), ("train/loss", 0.5, 3)]
+    runner._log("train", {"epoch": 0, "iter": 4, "loss": 0.25})
+    assert written == [("dir", str(tmp_path / "b")), ("train/loss", 0.5, 3),
+                       ("train/loss", 0.25, 4)]
 
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     runner = Runner(cfg, log_dir=str(tmp_path / "c"), device="cpu")

@@ -133,19 +133,21 @@ def test_optimizer_updates_match_optax(opt_type):
 
 
 def test_mu_dtype_is_refused():
-    """``optimizer.mu_dtype`` was refused until the port had an Adam with a
-    bf16 first moment; it now builds ``MuDtypeAdam`` (held to optax in
-    `test_torch_port_engine_gaps.py`), and a config without it keeps
-    ``torch.optim.Adam``."""
-    from lanemapping_tpu_torch.engine.optimizer import (MuDtypeAdam,
-                                                        build_optimizer)
+    """A ``optimizer.mu_dtype`` that names no dtype is refused, by both
+    packages, before any optimizer is built (a float dtype builds
+    ``MuDtypeAdam``, held to optax in `test_torch_port_engine_gaps.py`)."""
+    from lanemapping_tpu.engine.optimizer import build_optimizer as jax_opt
+    from lanemapping_tpu_torch.engine.optimizer import build_optimizer
 
-    _, cfg_t = configs(TINY)
-    p = [torch.zeros(1, requires_grad=True)]
-    assert type(build_optimizer(cfg_t, p)[0]) is torch.optim.Adam
-    cfg_t.optimizer["mu_dtype"] = "bfloat16"
-    opt = build_optimizer(cfg_t, p)[0]
-    assert isinstance(opt, MuDtypeAdam) and opt.mu_dtype == torch.bfloat16
+    for opt_type in ("Adam", "SGD"):
+        cfg_j, cfg_t = configs(TINY)
+        for cfg in (cfg_j, cfg_t):
+            cfg.optimizer["type"] = opt_type
+            cfg.optimizer["mu_dtype"] = "bfloat17"
+        with pytest.raises(TypeError):
+            jax_opt(cfg_j)
+        with pytest.raises(TypeError, match="mu_dtype"):
+            build_optimizer(cfg_t, [torch.zeros(1, requires_grad=True)])
 
 
 # -- data and metrics -------------------------------------------------------
