@@ -145,14 +145,41 @@ or outside a checkout.  Phases, each of which fails the run:
    phase 11 checks them (loss terms within 1e-4, parameters and buffers
    within rel-max 2e-3); the nine family backbones and the JAX package's
    test Swin in eval and train mode within rel-max 1e-5.
+20. data parallelism on the one card (`lanemapping_tpu_torch/parallel/`),
+   over phase 7's dataset: (a) the flagship at full width, bf16, batch 8,
+   2 steps in a 1-rank NCCL group and twice with no group: no collective
+   called at a world of one, the first step's loss terms bit-identical,
+   the parameter digest after 2 steps within rel 1e-5 of the first
+   no-group run's (the step is not bit-reproducible on the card: the
+   bilinear upsample's backward accumulates with atomics, and two
+   no-group runs differ); (b) two ranks sharing the card over gloo
+   (``torch.multiprocessing`` ranks of this script, ``dist_rank``), the
+   flagship in float32 with TF32 off at a tenth of its lr, global batch 8
+   as 4+4, 3 steps and a validate, against one process at the bars of
+   `tools/multihost_test.py` (losses rel 1e-3, digest rel 1e-5, metrics
+   abs 5e-2), the ranks bit-identical to each other; (c) the flagship's
+   bf16 on the two ranks, 4 steps: s/step per rank (CUDA events), peak
+   ``max_memory_allocated`` per rank, and the all-reduce ops' host ms
+   over one step under ``torch.profiler``; (d) the LiDAR config on the
+   two ranks, 2 steps: K1z launched once per step on each rank;
+21. ``tools/stream_map --from-las`` over ``devices=[cuda:0, cuda:0]`` (two
+   model replicas, each batch of 8 split 4+4) against one replica at
+   batch 4 (the forwards' shapes equal, so the card picks the same
+   kernels), phase 4's clouds, float32 with TF32 off: every head map and
+   every continuous decode array within rel-max 1e-5 (the argmax,
+   threshold and endpoint decisions are counted where they differ: at
+   batch 8 against 4 they flip where the kernels' rounding does), one
+   lane JSON per tile, K1 launched once per replica per batch (the
+   warm-up batch included).
 
 Phases 9, 10, 12, 13, 15, 16 and 18 run with PyTorch's default precision
 flags (TF32 convolutions on) but where they say otherwise.  Each phase
 prints its wall time.  Before the last line it prints ``{"kernels":
 [...]}`` (with each kernel's launches on the serving and the training
 path, the four configs of phases 12-13, the 3-D map paths of phase 15,
-the branches of phase 16 and phase 18's Base head and flag runs); the
-last line is
+the branches of phase 16, phase 18's Base head and flag runs, K1z's per
+rank in phase 20(d) and K1's over phase 21's two replicas); the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2176,6 +2203,459 @@ def phase_zoo_models_card_vs_cpu(root, log_root):
             f"{worst:.3e}")
 
 
+# -- phases 20 and 21: data parallelism on the one card ----------------------
+
+DIST_STEPS = {"nccl": 2, "fp32": 3, "bf16": 4, "lidar": 2}
+
+
+def dist_cfg(config, root, **over):
+    """A training config for the data-parallel phases: every split at
+    ``root``, every step logged, no validate or save inside the run."""
+    return train_cfg(config, root, log_every=1, eval_ep=10 ** 6,
+                     save_ep=10 ** 6, workers=8, **over)
+
+
+def fp32_cfg(root):
+    """The flagship in float32 at a tenth of its lr (phase 11's reason:
+    larger steps part any two float32 runs of the ill-conditioned encoder
+    at random weights)."""
+    cfg = dist_cfg(FLAGSHIP, root, train_compute_dtype="float32")
+    cfg.optimizer.lr = cfg.optimizer.lr / 10
+    return cfg
+
+
+def pin_fp32():
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def run_train(cfg, log_dir, n_steps, device="cuda"):
+    """``Runner.train(max_iters=n_steps)``: the Runner, every step's
+    statistics (floats) and every step's (CUDA events ms, host s)."""
+    import torch
+    from lanemapping_tpu_torch.engine.runner import Runner
+    runner = Runner(cfg, log_dir=log_dir, device=device)
+    runner._tb = None  # the phase reads the step records
+    step, recs, times = runner.train_step, [], []
+
+    def timed(state, batch):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        stats = step(state, batch)
+        b.record()
+        b.synchronize()
+        times.append((a.elapsed_time(b), time.perf_counter() - t0))
+        recs.append({k: float(v) for k, v in stats.items()})
+        return stats
+    runner.train_step = timed
+    runner.train(max_iters=n_steps)
+    runner.train_step = step
+    check(len(recs) == n_steps, f"{len(recs)} of {n_steps} steps ran")
+    for r in recs:
+        bad = [k for k, v in r.items() if not math.isfinite(v)]
+        check(not bad and r["skipped_nan"] == 0.0,
+              f"non-finite {bad} or a NaN-guard skip: {r}")
+    return runner, recs, times
+
+
+def collective_device_ms(prof):
+    """From a ``torch.profiler`` trace of one step: (device ms of the
+    collectives' work on the card, device ms of every kernel and copy).
+    The collectives' work is NCCL's kernels and, for gloo, the copies
+    between the card and the host (the step's other copies are a few
+    scalar reads)."""
+    from torch.autograd import DeviceType
+    coll = total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        total += us / 1e3
+        if "nccl" in ev.key.lower() or "memcpy" in ev.key.lower():
+            coll += us / 1e3
+    return coll, total
+
+
+def collectives_alone(runner, db):
+    """One train step in which every ``all_reduce`` runs alone: the card
+    drained (``torch.cuda.synchronize``) and the ranks met (a barrier)
+    before it, the card drained after it.  [(elements, host ms)] of each
+    call, in order: the exchange itself, without the wait for this rank's
+    queued kernels or for the other rank."""
+    import torch
+    import torch.distributed as tdist
+    real, calls = tdist.all_reduce, []
+
+    def alone(t, *a, **k):
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        out = real(t, *a, **k)
+        torch.cuda.synchronize()
+        calls.append((t.numel(), (time.perf_counter() - t0) * 1e3))
+        return out
+    tdist.all_reduce = alone
+    try:
+        runner.train_step(runner.state, db)
+        torch.cuda.synchronize()
+    finally:
+        tdist.all_reduce = real
+    return calls
+
+
+def dist_rank(rank, world, port, root, log_root, out_dir):
+    """One rank of phase 20 (b)-(d) (a ``torch.multiprocessing.spawn``
+    target): ranks sharing cuda:0 over gloo.  Writes
+    ``<out_dir>/rank<rank>.json``."""
+    sys.path.insert(0, HERE)
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    from lanemapping_tpu_torch.parallel.dist import (
+        all_gather_host, maybe_initialize_distributed, shutdown)
+    from lanemapping_tpu_torch.tools.multihost_test import state_digest
+
+    dev = maybe_initialize_distributed(
+        coordinator=f"127.0.0.1:{port}", num_processes=world,
+        process_id=rank, devices=["cuda:0"] * world)
+    res = {}
+    try:
+        check(torch.distributed.get_backend() == "gloo", "backend")
+        # (b) float32, TF32 off, 3 steps and a validate
+        pin_fp32()
+        runner, recs, _ = run_train(fp32_cfg(root), os.path.join(
+            log_root, "fp32"), DIST_STEPS["fp32"], dev)
+        t0 = time.perf_counter()
+        val = runner.validate()
+        res["fp32"] = {"records": recs, "val": val,
+                       "validate_s": time.perf_counter() - t0,
+                       "digests": all_gather_host(state_digest(
+                           runner.model))}
+        del runner
+        torch.cuda.empty_cache()
+
+        # (c) the config's bf16, timed, then one step under the profiler
+        torch_defaults()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dist_cfg(FLAGSHIP, root)
+        runner, recs, times = run_train(cfg, os.path.join(log_root, "bf16"),
+                                        DIST_STEPS["bf16"], dev)
+        peak = torch.cuda.max_memory_allocated()
+        db = runner._device_batch(next(iter(build_dataloader(
+            cfg.dataset.train, cfg))))
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.train_step(runner.state, db)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        coll_dev, all_dev = collective_device_ms(prof)
+        res["bf16"] = {"records": recs, "times": times, "peak_bytes": peak,
+                       "profiled_step_s": step_s,
+                       "collective_device_ms": coll_dev,
+                       "device_ms": all_dev,
+                       "alone": collectives_alone(runner, db),
+                       "digests": all_gather_host(state_digest(
+                           runner.model))}
+        del runner, db
+        torch.cuda.empty_cache()
+
+        # (d) the LiDAR config: K1z once per step on each rank
+        reset_launches()
+        runner, recs, times = run_train(
+            dist_cfg(LIDAR, root), os.path.join(log_root, "lidar"),
+            DIST_STEPS["lidar"], dev)
+        res["lidar"] = {"records": recs, "times": times,
+                        "launches": read_launches()}
+        del runner
+    finally:
+        shutdown()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def flat_state(model):
+    return {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+
+
+def phase_dist_world_one(root, log_root):
+    """Phase 20 (a): the flagship at full width, bf16, batch 8, 2 steps
+    in a 1-rank NCCL group against the same 2 steps with no group, run
+    twice.  The step is not reproducible bit for bit on the card (the
+    bilinear upsample's backward accumulates with atomics: two no-group
+    runs differ), so it holds what is: no collective is called at a world
+    of one, the first step's loss terms are bit-identical, and after 2
+    steps the parameter digest is within the multihost bar of the first
+    no-group run's, as the second no-group run's is."""
+    import torch
+    import torch.distributed as tdist
+    from lanemapping_tpu_torch.parallel.dist import (
+        maybe_initialize_distributed, shutdown)
+    from lanemapping_tpu_torch.tools.multihost_test import (BARS,
+                                                            state_digest)
+    from lanemapping_tpu_torch.parallel.dist import free_port
+
+    torch_defaults()
+    torch.backends.cudnn.deterministic = True
+    calls = []
+    names = ("all_reduce", "all_gather_object", "barrier", "broadcast")
+    real = {n: getattr(tdist, n) for n in names}
+    runs = {}
+    try:
+        for how in ("no group", "no group again", "nccl world 1"):
+            if how == "nccl world 1":
+                maybe_initialize_distributed(
+                    coordinator=f"127.0.0.1:{free_port()}", num_processes=1,
+                    process_id=0, devices=["cuda:0"])
+                check(tdist.get_backend() == "nccl" and
+                      tdist.get_world_size() == 1, "not a 1-rank NCCL group")
+                for n in names:
+                    setattr(tdist, n, lambda *a, n=n, **k: calls.append(n)
+                            or real[n](*a, **k))
+            runner, recs, _ = run_train(
+                dist_cfg(FLAGSHIP, root),
+                os.path.join(log_root, how.replace(" ", "_")),
+                DIST_STEPS["nccl"])
+            runs[how] = (recs, state_digest(runner.model)["param_digest"])
+            del runner
+            torch.cuda.empty_cache()
+    finally:
+        for n in names:
+            setattr(tdist, n, real[n])
+        shutdown()
+        torch_defaults()
+    check(not calls, f"collectives at a world of one: {calls}")
+    base, digest = runs["no group"]
+    rel = {}
+    for how in ("no group again", "nccl world 1"):
+        recs, d = runs[how]
+        check(recs[0] == base[0], f"{how}: first step {recs[0]} != {base[0]}")
+        rel[how] = abs(d - digest) / digest
+        check(rel[how] < BARS["digest_rel"], f"{how}: digest rel {rel[how]}")
+    log(f"20(a) flagship bf16 batch 8, {DIST_STEPS['nccl']} steps: in a "
+        f"1-rank NCCL group no collective was called; first step loss "
+        f"terms bit-identical to two runs with no group; parameter digest "
+        f"rel to the first no-group run: NCCL world 1 "
+        f"{rel['nccl world 1']:.3e}, "
+        f"second no-group run {rel['no group again']:.3e} (bar "
+        f"{BARS['digest_rel']}); losses "
+        f"{[r['loss'] for r in runs['nccl world 1'][0]]} vs "
+        f"{[r['loss'] for r in base]}")
+
+
+def phase_dist_two_ranks(root, log_root):
+    """Phase 20 (b)-(d): two ranks sharing the card over gloo, against one
+    process.  Returns K1z's launches per rank in (d)."""
+    import torch
+    import torch.multiprocessing as mp
+    from lanemapping_tpu_torch.tools.multihost_test import (BARS, compare,
+                                                            state_digest)
+    from lanemapping_tpu_torch.parallel.dist import free_port
+
+    # the one-process reference of (b)
+    pin_fp32()
+    runner, recs, _ = run_train(fp32_cfg(root), os.path.join(
+        log_root, "fp32_one"), DIST_STEPS["fp32"])
+    t0 = time.perf_counter()
+    one = {"losses": [r["loss"] for r in recs], "val": runner.validate(),
+           "param_digest": state_digest(runner.model)["param_digest"]}
+    one_val_s = time.perf_counter() - t0
+    del runner
+    torch.cuda.empty_cache()
+    torch_defaults()
+
+    out_dir = os.path.join(log_root, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(dist_rank, args=(2, free_port(), root, log_root, out_dir),
+             nprocs=2, join=True)
+    log(f"20(b-d) two ranks spawned and joined in "
+        f"{time.perf_counter() - t0:.3f} s")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    fp = [r["fp32"] for r in ranks]
+    check(fp[0]["records"] == fp[1]["records"],
+          "the ranks logged different global losses")
+    two = {"losses": [r["loss"] for r in fp[0]["records"]],
+           "val": fp[0]["val"],
+           "param_digest": fp[0]["digests"][0]["param_digest"],
+           "rank_sha256": [d["sha256"] for d in fp[0]["digests"]]}
+    cmp = compare(one, two)
+    check(cmp["pass"], f"20(b) two ranks against one process: {cmp}")
+    log(f"20(b) flagship float32 (TF32 off), global batch 8 as 4+4, "
+        f"{DIST_STEPS['fp32']} steps at lr/10: losses one process "
+        f"{one['losses']}, two ranks {two['losses']} (max rel "
+        f"{cmp['max_rel_loss_diff']:.3e} < {BARS['loss_rel']}); digest rel "
+        f"{cmp['param_digest_rel_diff']:.3e} < {BARS['digest_rel']}; ranks "
+        f"bit-identical; validate metrics abs diff "
+        f"{cmp['val_metric_abs_diff']} < {BARS['metric_abs']} (one process "
+        f"{one_val_s:.3f} s, two ranks {fp[0]['validate_s']:.3f} s)")
+
+    bf = [r["bf16"] for r in ranks]
+    check(len({d["sha256"] for d in bf[0]["digests"]}) == 1,
+          "20(c) ranks differ after the bf16 steps")
+    for r, b in enumerate(bf):
+        ms = [t[0] for t in b["times"]][1:]
+        s_step = sum(ms) / len(ms) / 1e3
+        alone = b["alone"]
+        check(alone, f"20(c) rank {r}: no all-reduce in the step")
+        n_grad, grad_ms = max(alone)  # the flat gradient: the most elements
+        alone_ms = sum(t for _, t in alone)
+        log(f"20(c) rank {r}: flagship bf16 batch 4 of 8 on a shared card "
+            f"(gloo): per step ms (CUDA events) "
+            f"{[round(t[0], 4) for t in b['times']]}, host s "
+            f"{[round(t[1], 4) for t in b['times']]}; after the warm-up "
+            f"step {s_step:.5f} s/step; peak max_memory_allocated "
+            f"{b['peak_bytes'] / 2 ** 30:.3f} GiB; each all-reduce alone "
+            f"(card drained, ranks met): the flat gradient of {n_grad} "
+            f"float32 {grad_ms:.3f} ms, all {len(alone)} calls "
+            f"{alone_ms:.3f} ms ({alone_ms / (s_step * 1e3):.1%} of the "
+            f"s/step); profiled step {b['profiled_step_s']:.5f} s, device "
+            f"ms of collective copies and NCCL kernels "
+            f"{b['collective_device_ms']:.3f} of {b['device_ms']:.3f} "
+            f"device ms ({b['collective_device_ms'] / b['device_ms']:.1%})")
+
+    launches = [r["lidar"]["launches"]["voxel_bin_mean"] for r in ranks]
+    check(launches == [DIST_STEPS["lidar"]] * 2,
+          f"20(d) K1z launches per rank {launches}, want one per step")
+    log(f"20(d) LiDAR config on 2 ranks, batch 4 of 8 each, "
+        f"{DIST_STEPS['lidar']} steps: K1z launched {launches} times per "
+        f"rank; losses {[r['loss'] for r in ranks[0]['lidar']['records']]}; "
+        f"step ms {[round(t[0], 4) for t in ranks[0]['lidar']['times']]}")
+    return launches
+
+
+# the decode's arrays that vary continuously with the head maps; the rest
+# are argmax, threshold and endpoint top-K decisions, compared exactly, but
+# ``cls_offset`` (the column ``cls`` plus the offset map's value there),
+# which is continuous wherever ``cls`` agrees
+CONTINUOUS_DECODE = ("prop_conf", "bi_seg_rows", "cls_exp", "endp_logits")
+# phase 21's bounds on what two replicas may change against one: the share
+# of decisions that differ (runs on the H100 saw a few of 16 tiles') and the
+# share of tiles whose lanes differ; a wrong row split or tile order changes
+# most of both at random weights
+MAX_FLIP_SHARE = 1e-3
+MAX_LANE_TILE_SHARE = 0.5
+
+
+def same_lanes(a_path, b_path, px=0.05):
+    """Two lane JSONs hold the same lanes: as many records, each with as
+    many vertices, every vertex within ``px`` pixels."""
+    import numpy as np
+    with open(a_path) as f:
+        a = json.load(f)
+    with open(b_path) as f:
+        b = json.load(f)
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        sa = np.asarray(ra["seq"], np.float64)
+        sb = np.asarray(rb["seq"], np.float64)
+        if sa.shape != sb.shape or (np.abs(sa - sb) > px).any():
+            return False
+    return True
+
+
+def phase_stream_replicas(root, out_root):
+    """Phase 21: ``stream_map --from-las`` over ``devices=[cuda:0,
+    cuda:0]``, batch 8 split 4+4, against one replica at batch 4 (the
+    same forwards' shapes, so cuDNN and cuBLAS pick the same kernels),
+    float32, TF32 off.  Returns K1's launches."""
+    import numpy as np
+    import torch
+    import lanemapping_tpu_torch.decode.lane_decode as lane_decode
+    from lanemapping_tpu_torch.tools import stream_map
+
+    pin_fp32()
+    real = (lane_decode.decode_lanes, lane_decode.host_decode_view)
+
+    def host(d):
+        return {k: v.float().cpu().numpy() for k, v in d.items()}
+
+    runs, launches, recs = {}, {}, {}
+    try:
+        for n in (1, 2):
+            maps, decs = [], []
+            runs[n] = (maps, decs)
+            lane_decode.decode_lanes = lambda out, cfg, maps=maps: \
+                maps.append(host(out)) or real[0](out, cfg)
+            lane_decode.host_decode_view = lambda dec, decs=decs: \
+                decs.append(host(real[1](dec))) or real[1](dec)
+            reset_launches()
+            recs[n] = stream_map.main(
+                [FLAGSHIP, root, "compute_dtype=float32", "--from-las",
+                 "--batch", str(B * n // 2), "--out",
+                 os.path.join(out_root, f"replicas{n}"), "--seed", "0"],
+                devices=["cuda:0"] * n)
+            launches[n] = read_launches()["bev_bin_mean"]
+    finally:
+        lane_decode.decode_lanes, lane_decode.host_decode_view = real
+        torch_defaults()
+    n_calls = recs[2]["n_batches"] + 1  # the warm-up batch runs twice
+    check(launches[2] == 2 * n_calls,
+          f"K1 launches {launches[2]}, want one per replica per batch "
+          f"({n_calls} batches with the warm-up)")
+    check(recs[2]["devices"] == ["cuda:0", "cuda:0"], recs[2]["devices"])
+    # the timed forwards: one replica's 4-tile batches in tile order, and
+    # the two replicas' halves of each 8-tile batch, replica 0 first
+    worst, flips, n_decisions = (0.0, ""), {}, 0
+    for what, i in (("map", 0), ("decode", 1)):
+        one, two = runs[1][i][1:], runs[2][i][2:]
+        check(len(one) == len(two) == N_CLOUDS // (B // 2),
+              f"21: {len(one)} and {len(two)} forwards")
+        for w, g in zip(one, two):
+            for k, a in w.items():
+                if what == "decode" and k == "cls_offset":
+                    same = g["cls"] == w["cls"]
+                    a, g_k = a[same], g[k][same]
+                    if not a.size:
+                        continue
+                elif what == "decode" and k not in CONTINUOUS_DECODE:
+                    flips[k] = flips.get(k, 0) + int((g[k] != a).sum())
+                    n_decisions += a.size
+                    continue
+                else:
+                    g_k = g[k]
+                err = float(np.abs(g_k - a).max()
+                            / max(1e-3, np.abs(a).max()))
+                worst = max(worst, (err, f"{what} {k}"))
+    check(worst[0] < 1e-5, f"21: {worst[1]} rel-max {worst[0]:.3e}")
+    share = sum(flips.values()) / n_decisions
+    check(share <= MAX_FLIP_SHARE,
+          f"21: {flips} of {n_decisions} decisions differ ({share:.3e} > "
+          f"{MAX_FLIP_SHARE})")
+    names, n_lanes = check_lane_jsons(recs[2]["lanes_dir"], N_CLOUDS)
+    check(names == sorted(os.listdir(recs[1]["lanes_dir"])),
+          "21: the replicas wrote other tiles' lane JSONs")
+    differ = [n for n in names if not same_lanes(
+        os.path.join(recs[1]["lanes_dir"], n),
+        os.path.join(recs[2]["lanes_dir"], n))]
+    check(len(differ) <= MAX_LANE_TILE_SHARE * len(names),
+          f"21: the lanes of {len(differ)} of {len(names)} tiles differ")
+    log(f"21 stream_map --from-las over [cuda:0, cuda:0], float32, batch "
+        f"{B} as {B // 2}+{B // 2}, against one replica at batch {B // 2}: "
+        f"{recs[2]['n_tiles']} tiles, one lane JSON each ({n_lanes} "
+        f"lanes); every head map and continuous decode array (cls_offset "
+        f"where cls agrees) within rel-max {worst[0]:.3e} ({worst[1]}); "
+        f"decision elements that differ {flips}, {sum(flips.values())} of "
+        f"{n_decisions} ({share:.3e}, bound {MAX_FLIP_SHARE}); tiles whose "
+        f"lanes differ (count, vertex count or a vertex by > 0.05 px) "
+        f"{len(differ)} of {len(names)} {differ} (bound "
+        f"{MAX_LANE_TILE_SHARE:.0%}); K1 launches {launches[2]} (one per "
+        f"replica per batch, {n_calls} batches with the warm-up)")
+    return launches[2]
+
+
 def main():
     if not (os.path.isdir(os.path.join(HERE, "lanemapping_tpu_torch", "csrc"))
             and all(os.path.isfile(c) for c in (FLAGSHIP, TINY, LIDAR,
@@ -2272,6 +2752,11 @@ def main():
                                      for path, counts in zoo_models.items()}
         phase(19, phase_zoo_models_card_vs_cpu, os.path.join(tmp, "tiny_zoo2"),
               os.path.join(tmp, "zoo2_tiny_logs"))
+        phase(20, phase_dist_world_one, lidar_root, os.path.join(tmp, "dist1"))
+        k1z["launches_dist_per_rank"] = phase(
+            20, phase_dist_two_ranks, lidar_root, os.path.join(tmp, "dist2"))
+        k1["launches_replicas"] = phase(21, phase_stream_replicas, root,
+                                        os.path.join(tmp, "replicas"))
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

@@ -3,11 +3,14 @@
 
 Numpy samples are assembled into batches on a thread pool and prefetched
 ahead of the device step, so host-side LAS parsing and proposal-GT builds
-overlap device compute.  The multi-process rank slicing is kept as in the
-JAX package; the port runs one process on one card, and
-``build_dataloader`` builds that single-process loader.  Shuffling is keyed
-by seed + epoch as in the JAX package, so for one seed both packages see
-the same batches in the same order.
+overlap device compute.  Under a process group of more than one rank
+(`parallel/dist.py`) ``build_dataloader`` gives each rank its slice of
+every global batch, train and eval loaders alike, as the JAX package
+does: rank ``r`` of ``n`` loads rows ``[r*B/n, (r+1)*B/n)`` of each
+global batch of ``cfg.batch_size``, and ragged tails are dropped so that
+every rank holds as many rows.  Shuffling is keyed by seed + epoch as in
+the JAX package, so for one seed both packages see the same batches in
+the same order, and all ranks shuffle alike.
 """
 
 from __future__ import annotations
@@ -134,7 +137,9 @@ class Loader:
 
 def build_dataloader(split_cfg, cfg, is_train: bool = True) -> Loader:
     """Factory mirroring the reference `build_dataloader`
-    (`datasets/registry.py:33-62`), for one process."""
+    (`datasets/registry.py:33-62`): this rank's slice of the global
+    batches when the process group has more than one rank."""
+    from ..parallel.dist import get_rank, get_world_size
     from ..registry import build_dataset
 
     return Loader(
@@ -144,4 +149,6 @@ def build_dataloader(split_cfg, cfg, is_train: bool = True) -> Loader:
         drop_last=is_train,
         seed=cfg.get("seed", 0),
         num_threads=min(8, max(1, cfg.get("workers", 4))),
+        process_index=get_rank(),
+        process_count=get_world_size(),
     )

@@ -15,6 +15,10 @@ keeps the entries whose shapes match the model (reference
 `net_utils.py:23-33`), from such a checkpoint or from a plain torch
 ``state_dict`` / reference ``.pth``.  Orbax checkpoints of the JAX package
 would need JAX; their weights cross through `tools/from_jax.py`.
+
+In a process group of more than one rank, rank 0 writes (every rank holds
+the same state) and all ranks then meet at a barrier, so none reads a
+checkpoint before it is complete; every rank loads.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Dict
 
 import torch
 
+from ..parallel.dist import is_main_process, synchronize
 from .state import TrainState
 
 STATE_FILE = "state.pt"
@@ -39,15 +44,17 @@ def _ckpt_dir(log_dir: str) -> str:
 
 def save_model(log_dir: str, state: TrainState, tag: str) -> str:
     path = os.path.join(_ckpt_dir(log_dir), tag)
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict(),
-                "step": state.step,
-                "generator": state.generator.get_state(),
-                "generator_device": state.generator.device.type}, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if is_main_process():
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "scheduler": state.scheduler.state_dict(),
+                    "step": state.step,
+                    "generator": state.generator.get_state(),
+                    "generator_device": state.generator.device.type}, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+    synchronize()
     return path
 
 

@@ -8,6 +8,20 @@ composite best-model metric ``0.9*coor_F1 + 0.1*endp_F1`` (reference
 checkpoints (`engine/checkpoint.py`), on one device: ``cuda`` unless the
 caller asks for the CPU.
 
+In a process group of more than one rank (`parallel/dist.py`; started by
+`tools/train.py` with one rank per card of the mesh) each rank's Runner
+holds the same seeded model on its own device and follows the JAX
+Runner's multi-process branches: the loaders take the rank's rows of each
+global batch (`data/loader.py`), the train step works on the global batch
+(`engine/state.py`), the logs and TensorBoard are written by rank 0 only,
+the mono squeeze is off unless ``cfg.dataset_mono_bev`` pins it (a
+per-batch content check could disagree between ranks), every validation
+loop scores its rank's rows and merges the metrics over the ranks
+(``_merge_metrics``: the mean of the per-rank means, the sum of the
+counts), so ``best_metric`` agrees on every rank, checkpoints are written
+by rank 0 (`engine/checkpoint.py`), and each rank writes its own tiles'
+lane JSONs.
+
 Batches go up as the JAX package ships them (``_device_batch``): small
 integer labels in their narrowest dtype, the PNG-sourced ``proj`` and
 ``endp_map`` re-quantised to their uint8 (exact; /255 on the device), a
@@ -41,6 +55,7 @@ from ..data.loader import build_dataloader
 from ..models.head_losses import (column_proposal_loss, head_hparams,
                                   segmentor_loss)
 from ..models.nets import build_model
+from ..parallel.dist import all_gather_host, get_world_size, is_main_process
 from .checkpoint import load_model, load_network_filtered, save_model
 from .state import (create_train_state, eval_step, is_mono_batch,
                     make_train_step)
@@ -155,6 +170,10 @@ class Runner:
 
     # -- logging -----------------------------------------------------------
     def _log(self, tag: str, record: Dict):
+        # rank 0 only: every rank holds the same merged numbers, and
+        # concurrent appends to one JSONL would interleave
+        if not is_main_process():
+            return
         record = {k: (float(v) if isinstance(v, (torch.Tensor, np.ndarray,
                                                  np.floating)) else v)
                   for k, v in record.items()}
@@ -182,12 +201,16 @@ class Runner:
     # -- batches -------------------------------------------------------------
     def _mono_squeeze(self, v: np.ndarray) -> bool:
         """Whether to ship this uint8 image batch as one channel
-        (``cfg.dataset_mono_bev`` pins it; unset, the content decides)."""
+        (``cfg.dataset_mono_bev`` pins it; unset, the content decides, in
+        one process only: across ranks a per-batch content check could
+        disagree, so the squeeze stays off)."""
         if v.ndim != 4 or v.shape[-1] != 3:
             return False
         flag = self.cfg.get("dataset_mono_bev")
         if flag is not None:
             return bool(flag)
+        if get_world_size() > 1:
+            return False
         return is_mono_batch(v)
 
     def _upload(self, v) -> torch.Tensor:
@@ -272,6 +295,20 @@ class Runner:
     def _host(dec: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         return {k: v.cpu().numpy() for k, v in dec.items()}
 
+    @staticmethod
+    def _merge_metrics(scalars: Dict, counts: Optional[Dict] = None):
+        """Merge per-rank metric means and counts over the ranks (JAX
+        `runner.py:409-421`): the mean of the means (every rank scores the
+        same number of tiles) and the sum of the counts."""
+        if get_world_size() == 1:
+            return scalars, counts
+        gathered = all_gather_host((scalars, counts))
+        merged = {k: float(np.mean([g[0][k] for g in gathered]))
+                  for k in scalars}
+        if counts is not None:
+            counts = {k: sum(g[1][k] for g in gathered) for k in counts}
+        return merged, counts
+
     # -- loops --------------------------------------------------------------
     def train(self, max_iters: Optional[int] = None):
         cfg = self.cfg
@@ -331,6 +368,9 @@ class Runner:
             if seg_scores else 0.0
         endp_f1 = float(np.mean([s["f1"] for s in endp_scores])) \
             if endp_scores else 0.0
+        scalars, _ = self._merge_metrics({"seg_f1": seg_f1,
+                                          "endp_f1": endp_f1})
+        seg_f1, endp_f1 = scalars["seg_f1"], scalars["endp_f1"]
         return {"seg_f1": seg_f1, "endp_f1": endp_f1,
                 "composite": 0.9 * seg_f1 + 0.1 * endp_f1}
 
@@ -357,6 +397,7 @@ class Runner:
             for b in range(conf_pred.shape[0]):
                 f1s.append(grid_measures(conf_label[b], conf_pred[b])["f1"])
         f1 = float(np.mean(f1s)) if f1s else 0.0
+        f1 = self._merge_metrics({"conf_f1": f1})[0]["conf_f1"]
         return {"conf_f1": f1, "composite": f1}
 
     def _validate_lanes(self, loader, max_batches) -> Dict:
@@ -438,12 +479,13 @@ class Runner:
                     sem_counts[k] += r[2][k]
         coor = float(np.mean(coor_f1s)) if coor_f1s else 0.0
         endp = float(np.mean(endp_f1s)) if endp_f1s else 0.0
-        metrics = {"coor_f1": coor, "endp_f1": endp,
-                   "endp_acc": float(np.mean(endp_accs)) if endp_accs
-                   else 0.0,
-                   "endp_recall": float(np.mean(endp_recs)) if endp_recs
-                   else 0.0,
-                   "composite": 0.9 * coor + 0.1 * endp}
+        scalars, sem_counts = self._merge_metrics(
+            {"coor_f1": coor, "endp_f1": endp,
+             "endp_acc": float(np.mean(endp_accs)) if endp_accs else 0.0,
+             "endp_recall": float(np.mean(endp_recs)) if endp_recs
+             else 0.0}, sem_counts if saw_mask else None)
+        coor, endp = scalars["coor_f1"], scalars["endp_f1"]
+        metrics = {**scalars, "composite": 0.9 * coor + 0.1 * endp}
         if saw_mask:
             acc, rec, f1 = prf_from_counts(**sem_counts)
             metrics["semantic_f1"] = f1
@@ -539,6 +581,8 @@ class Runner:
                                skel_img)
         metrics = {}
         for key, c in counts.items():
+            # pooled over every rank's tiles (the JAX method logs rank 0's)
+            c = self._merge_metrics({}, c)[1]
             acc, rec, f1 = prf_from_counts(**c)
             metrics.update({f"{key}_conf_prec": acc, f"{key}_conf_rec": rec,
                             f"{key}_conf_f1": f1})

@@ -27,6 +27,18 @@ net's output dict holds (the loss function reads them):
   restored), optimizer state and LR schedule as they were, and still
   advances ``step``; ``skipped_nan`` reports it.  This costs one host read
   of the loss per step.
+- **Data parallel as the JAX step under pjit** (a process group of more
+  than one rank, `parallel/dist.py`): each rank runs the backward pass on
+  its contribution to the global loss (`models/head_losses.py`; BatchNorm
+  normalises over the global batch, `models/norm.py`), one ``all_reduce``
+  of the stacked loss terms makes the logged terms and ``loss`` the global
+  ones, the NaN guard decides on that global loss (so every rank skips
+  together), one ``all_reduce`` (SUM) of the float32 master gradients as a
+  single flat buffer gives every rank the global gradient, and the
+  optimizer steps on it.  The model is not wrapped in
+  ``DistributedDataParallel``: the step differentiates through
+  ``functional_call`` on cast parameters, which bypasses its forward and so
+  its gradient hooks.  At a world of one no collective runs.
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.dist import get_world_size, sum_over_ranks
 
 
 @dataclass
@@ -134,13 +148,28 @@ def make_train_step(loss_fn: Callable[[Dict, Dict], Dict],
         loss = res["loss"]
         state.optimizer.zero_grad(set_to_none=False)
         loss.backward()
-        ok = bool(torch.isfinite(loss))
+        stats = {k: v.detach() for k, v in res["loss_stats"].items()}
+        stats["loss"] = loss.detach()
+        world = get_world_size()
+        if world > 1:
+            # the global loss and terms: the sums of the contributions
+            keys = list(stats)
+            stats = dict(zip(keys, sum_over_ranks(torch.stack(
+                [stats[k].float() for k in keys])).unbind()))
+        ok = bool(torch.isfinite(stats["loss"]))
         if ok:
             for p in model.parameters():
                 # optax updates every leaf: a parameter the loss does not
                 # reach takes a zero gradient (AdamW still decays it)
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if world > 1:
+                grads = [p.grad for p in model.parameters()]
+                flat = sum_over_ranks(torch.cat([g.reshape(-1)
+                                                 for g in grads]))
+                for g, s in zip(grads, flat.split([g.numel()
+                                                   for g in grads])):
+                    g.copy_(s.view_as(g))
             state.optimizer.step()
             state.scheduler.step()
         else:
@@ -148,8 +177,6 @@ def make_train_step(loss_fn: Callable[[Dict, Dict], Dict],
                 for b, saved in zip(model.buffers(), buffers):
                     b.copy_(saved)
         state.step += 1
-        stats = {k: v.detach() for k, v in res["loss_stats"].items()}
-        stats["loss"] = loss.detach()
         stats["skipped_nan"] = 0.0 if ok else 1.0
         return stats
 

@@ -10,6 +10,14 @@ count ``S*S*64`` and not by batch; ``safe_div`` returns 0 for a batch with
 no valid vertex; the endpoint focal weights positives by ``endp_pos_w`` and
 negatives by ``endp_neg_w``.  The losses run in float32 whatever the
 outputs' dtype.  ``segmentor_loss`` is the Segmentor's pretraining loss.
+
+In a process group of more than one rank (`parallel/dist.py`) each rank's
+loss is its contribution to the loss of the global batch, as the JAX loss
+under pjit computes it: the local numerator over the global denominator
+(the batch size ``B``, the counts ``n_valid`` and ``n_orient``, summed
+over the ranks without gradient, and the mean's element count), so the
+ranks' contributions sum to the global loss, and ``safe_div`` and the
+orientation term test the global count.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.interp import _interp_matrix_np
+from ..parallel.dist import global_mean, global_rows, sum_over_ranks
 from ..ops.losses import (cross_entropy_with_int_labels, optax_sigmoid_ce,
                           sigmoid_focal_loss, smooth_l1)
 
@@ -91,7 +100,7 @@ def _fused_prop_seg_focal(seg_win: torch.Tensor, inst_m: torch.Tensor,
             total = total + checkpoint(_seg_focal_rows, uh[r], uw, seg_win,
                                        win[:, r], bestu, posw,
                                        use_reentrant=False)
-    return total / (S * S * ds * B)
+    return total / (S * S * ds * global_rows(B))
 
 
 def column_proposal_loss(out: Dict, batch: Dict, hp) -> Dict:
@@ -100,7 +109,7 @@ def column_proposal_loss(out: Dict, batch: Dict, hp) -> Dict:
     S = hp["row_size"]
     P = hp["num_prop"]
     W = hp["prop_fea_width"]
-    B = out["ext2"].shape[0]
+    B = global_rows(out["ext2"].shape[0])
     f32 = torch.float32
 
     gt_exist = batch["prop_ext"].to(f32)   # [B,P,S] in {0,1,2}
@@ -113,13 +122,13 @@ def column_proposal_loss(out: Dict, batch: Dict, hp) -> Dict:
     gt_coors = torch.where(invalid, -1.0, gt_coors)
     gt_exist = torch.where(invalid, 0.0, gt_exist)
     valid = gt_exist > 0
-    n_valid = torch.sum(valid)
+    n_valid = sum_over_ranks(torch.sum(valid))
 
     # proposal objectness targets (reference `:469-472`)
     pos = torch.sum(gt_exist, dim=2) > 2.0  # [B,P]
     posf = pos.to(f32)
     gt_prop = torch.stack([1.0 - posf, posf], dim=-1)
-    proposal_loss = torch.mean(
+    proposal_loss = global_mean(
         optax_sigmoid_ce(out["proposal_conf"].float(), gt_prop))
 
     # per-row existence/semantic CE inside positive proposals (`:531`)
@@ -180,7 +189,7 @@ def column_proposal_loss(out: Dict, batch: Dict, hp) -> Dict:
     lb_orient = batch["lc_orient"].long()  # [B,S,S]
     omask = lb_orient > 0
     orient_ce = cross_entropy_with_int_labels(out["orient"], lb_orient)
-    n_orient = torch.sum(omask)
+    n_orient = sum_over_ranks(torch.sum(omask))
     orient_loss = torch.where(
         n_orient > 0,
         hp["orient_w"] * torch.sum(orient_ce * omask)
@@ -247,7 +256,7 @@ def segmentor_loss(out: Dict, batch: Dict) -> Dict:
     seg_logits = out["semantic_seg"].float()  # [B,H,W,3]
     b, f_h, f_w, _ = seg_logits.shape
     seg_ce = cross_entropy_with_int_labels(seg_logits, batch["mask"])
-    seg_loss = torch.sum(seg_ce) / (b * f_h * f_w)
+    seg_loss = torch.sum(seg_ce) / (global_rows(b) * f_h * f_w)
 
     lb_endp = _heatmap_f32(batch["endp_map"])
     has_endp = (torch.sum(lb_endp, dim=(1, 2)) > 1.0).float()

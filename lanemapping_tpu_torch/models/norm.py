@@ -19,9 +19,24 @@ training they differ from ``nn.BatchNorm*d`` in two ways, both flax's
 BatchNorms from moving (a checkpointed stage's recompute, where flax's
 ``nn.remat`` moves them once per step).
 
+In a process group of more than one rank (`parallel/dist.py`) the layer
+normalises in training with the statistics of the global batch, as
+BatchNorm under the JAX package's pjit does: ``_SyncBatchNorm`` all-reduces
+``sum(x)``, then ``sum((x - mean)^2)`` (the biased variance, in float32),
+and in the backward pass ``[sum(dy), sum(dy * x_hat)]``; the running
+statistics move toward the global mean and biased variance.  Only
+``all_reduce`` is used, so it runs on gloo with CUDA tensors.
+``nn.SyncBatchNorm`` is not used: it moves the running variance toward the
+unbiased variance.  Every rank holds the same number of rows (the loaders
+refuse a batch that does not divide).  Under ``frozen_batch_stats`` the
+collectives still run (a recompute runs them in the backward pass, in the
+same order on every rank).  At a world of one nothing of this runs.
+
 ``Dropout`` draws its mask from ``generator`` when one is set (the Runner
 sets the train state's generator, seeded from ``cfg.seed``), else from
-torch's default generator.
+torch's default generator.  In a group of more than one rank it draws the
+mask of the global batch and keeps this rank's rows, so every rank
+advances the generator alike and N ranks draw what one process draws.
 """
 
 from __future__ import annotations
@@ -33,6 +48,44 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.dist import get_rank, get_world_size, sum_over_ranks
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over the global batch: float32 ``x`` [N, C,
+    ...] -> (y, mean, biased var), the statistics over every rank's
+    rows."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        count = x.numel() // x.shape[1] * get_world_size()
+        mean = sum_over_ranks(x.sum(dims)) / count
+        xc = x - mean.view(shape)
+        var = sum_over_ranks((xc * xc).sum(dims)) / count
+        invstd = torch.rsqrt(var + eps)
+        xhat = xc * invstd.view(shape)
+        y = xhat * weight.view(shape) + bias.view(shape)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.count = count
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, invstd = ctx.saved_tensors
+        dims = [0] + list(range(2, dy.dim()))
+        shape = [1, -1] + [1] * (dy.dim() - 2)
+        # this rank's parts of d(weight) and d(bias); the train step sums
+        # the gradients over the ranks
+        dw, db = (dy * xhat).sum(dims), dy.sum(dims)
+        g = sum_over_ranks(torch.cat([db, dw])) / ctx.count
+        mean_dy, mean_dyx = g.split(db.numel())
+        dx = (weight * invstd).view(shape) * (
+            dy - mean_dy.view(shape) - xhat * mean_dyx.view(shape))
+        return dx, dw, db, None
+
 
 class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
     frozen_stats = False
@@ -41,6 +94,16 @@ class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
         if not self.training:
             return super().forward(x)
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        if get_world_size() > 1:
+            y, mean, var = _SyncBatchNorm.apply(
+                x32, self.weight.to(x32.dtype), self.bias.to(x32.dtype),
+                self.eps)
+            if not self.frozen_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            return y.to(x.dtype)
         dims = [0] + list(range(2, x.dim()))
         if not self.frozen_stats:
             with torch.no_grad():
@@ -82,8 +145,12 @@ class Dropout(nn.Dropout):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        # the mask of the global batch, this rank's rows of it (the whole
+        # mask at a world of one)
+        n, rank = x.shape[0], get_rank()
+        keep = torch.rand((n * get_world_size(),) + tuple(x.shape[1:]),
+                          generator=self.generator, device=x.device)[
+            rank * n:(rank + 1) * n] >= self.p
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 

@@ -18,6 +18,11 @@ PixelSeg's ``cls``) come out NHWC, as the JAX heads return them.  Every
 layer takes its input width up front (flax infers it at init).  No torch
 reference is at hand for these heads, so the names are the flax module
 names; ``PerLaneConvHead`` keeps flax's ``[N, I, O]`` weights.
+
+In a process group of more than one rank each loss is this rank's
+contribution to the loss of the global batch (`models/head_losses.py`):
+the row count of ``row_shar_loss`` and the element count of each mean are
+global, and GridSeg's dice is taken over sums of every rank's rows.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.losses import cross_entropy_with_int_labels
+from ..parallel.dist import (get_world_size, global_mean, sum_over_ranks,
+                             sum_over_ranks_grad)
 from ..registry import HEADS
 from .norm import BatchNorm1d
 from .resnet_fpn import BN_EPS, BN_MOMENTUM
@@ -159,7 +166,7 @@ def row_shar_loss(out: Dict, batch: Dict, n_lanes: int, row_size: int = 144,
     def stage(ext_p, cls_p):
         ext_l = -torch.sum(ext_oh * torch.log(ext_p + EPS)) \
             / (n_lanes * row_size)
-        n_rows = torch.clamp(row_mask.sum(), min=1.0)
+        n_rows = torch.clamp(sum_over_ranks(row_mask.sum()), min=1.0)
         cls_l = -torch.sum(cls_map * torch.log(cls_p + EPS)
                            * row_mask[..., None]) * lambda_cls / n_rows
         return ext_l, cls_l
@@ -211,11 +218,14 @@ def grid_seg_loss(out: Dict, batch: Dict, num_classes: int,
     """Dice confidence + CE class loss (reference `grid_seg.py:43-112`)."""
     conf_lb, cls_lb = _format_labels(batch["label"][:, :, :144], num_classes,
                                      dataset_type)
-    cls_loss = cross_entropy_with_int_labels(out["cls"], cls_lb).mean()
+    cls_loss = global_mean(cross_entropy_with_int_labels(out["cls"], cls_lb))
     conf, conf_lb = out["conf"].float(), conf_lb.float()
-    num = 2.0 * torch.sum(conf * conf_lb)
-    den = torch.sum(conf ** 2) + torch.sum(conf_lb ** 2) + 1e-6
-    conf_loss = 1.0 - num / den
+    # the dice of the global batch, from sums over the ranks; each rank
+    # contributes 1/world of it (and, through SumOverRanks, its gradient)
+    num = sum_over_ranks_grad(2.0 * torch.sum(conf * conf_lb))
+    den = sum_over_ranks_grad(torch.sum(conf ** 2) + torch.sum(
+        conf_lb ** 2)) + 1e-6
+    conf_loss = (1.0 - num / den) / get_world_size()
     return {"loss": conf_loss + cls_loss,
             "loss_stats": {"conf": conf_loss, "cls": cls_loss}}
 
@@ -261,7 +271,7 @@ def pixel_seg_loss(out: Dict, batch: Dict, num_classes: int,
     """CE over per-pixel class labels, formatted as GridSeg's."""
     _, cls_lb = _format_labels(batch["label"][:, :, :out["cls"].shape[2]],
                                num_classes, dataset_type)
-    cls_loss = cross_entropy_with_int_labels(out["cls"], cls_lb).mean()
+    cls_loss = global_mean(cross_entropy_with_int_labels(out["cls"], cls_lb))
     return {"loss": cls_loss, "loss_stats": {"cls": cls_loss}}
 
 

@@ -35,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.interp import _upsample_then_pool_np, resize_bilinear_ac
+from ..parallel.dist import sum_over_ranks
 from ..registry import HEADS
 from .norm import BatchNorm1d, BatchNorm2d
 from .transformer import LN_EPS, Transformer
@@ -196,13 +197,15 @@ def endp_regression_loss(out, batch, img_size: int) -> torch.Tensor:
     """Weighted L1 on the Regr-mode endpoint FFN (reference
     ``weighted_l1_loss`` `:562-569` and the ``endp_mode=='Regr'`` branch of
     ``loss()``): targets are the first lane's init/end vertices over the
-    image size; samples without a lane are masked out."""
+    image size; samples without a lane are masked out.  The count of
+    valid samples is the global batch's (summed over the ranks)."""
     pred = out["endp_reg"].float()  # [B,4]
     tgt = torch.cat([batch["initp"][:, 0, :].float(),
                      batch["endp"][:, 0, :].float()], dim=-1) / float(img_size)
     valid = (tgt.abs().sum(dim=-1, keepdim=True) > 0).float()
     l1 = (pred - tgt).abs() * valid
-    return l1.sum() / torch.clamp(valid.sum() * 4.0, min=1.0)
+    return l1.sum() / torch.clamp(sum_over_ranks(valid.sum()) * 4.0,
+                                  min=1.0)
 
 
 @HEADS.register_module(name="RowSharNotReducRef_Base")

@@ -35,23 +35,36 @@ then lifted to the LiDAR frame, with the elevations of
 merged into one global map (`tools/merge_lines.py`), as the JAX script
 does (`tools/stream_map.py:325-335` there).
 
+Data-parallel serving (JAX `tools/stream_map.py:162-199`): one model
+replica per device of the config's mesh (`parallel/mesh.py::make_mesh`;
+``--device cuda`` means every card the config's ``mesh_shape`` takes, the
+flagship's ``data=-1`` every local card), in one process.  Each batch is
+split by rows over the replicas, each runs its rows on its own device (the
+``--from-las`` rasterize, K1, included) and the decodes come back in tile
+order.  A ragged final batch is padded to the full batch and the padded
+tiles discarded; a batch that does not divide over the replicas is
+refused.  With one device it runs as a single replica, unpadded.
+``main(argv, devices=[...])`` takes the mesh's devices explicitly (two
+replicas on one card, or on the CPU).
+
 ``main`` returns the run's numbers: tiles/s, and per stage the milliseconds
 per batch (device time from CUDA events for upload, the input stage
-(rasterize, voxelize or normalize), forward and decode; host time for the
-postprocess workers); after a 3-D lift also the paths of the 3-D lane
-directory and of the merged and down-sampled maps, and the lift's wall
-seconds (outside the timed region).
+(rasterize, voxelize or normalize), forward and decode, summed over the
+replicas; host time for the postprocess workers); after a 3-D lift also
+the paths of the 3-D lane directory and of the merged and down-sampled
+maps, and the lift's wall seconds (outside the timed region).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import itertools
 import json
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,31 +76,40 @@ STAGES = {"las": ("upload", "rasterize", "forward", "decode"),
 
 
 class StageClock:
-    """Per-stage device time: CUDA events on a card, host clock on the CPU
-    (where every op is synchronous)."""
+    """Per-stage device time: CUDA events on the cards, host clock on the
+    CPU (where every op is synchronous)."""
 
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
+    def __init__(self, devices: Sequence[torch.device]):
+        self.cuda = devices[0].type == "cuda"
+        self.cards = sorted({d for d in devices if d.type == "cuda"},
+                            key=str)
         self.marks: List[tuple] = []  # (stage, start, end)
 
-    def now(self):
+    def now(self, device: Optional[torch.device] = None):
+        """A mark on ``device``'s current stream (the current device's by
+        default)."""
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(torch.cuda.current_stream(device))
             return ev
         return time.perf_counter()
 
     def add(self, stage: str, start, end):
         self.marks.append((stage, start, end))
 
-    def ms_per_stage(self) -> Dict[str, float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-        tot: Dict[str, List[float]] = {}
+    def synchronize(self):
+        for d in self.cards:
+            torch.cuda.synchronize(d)
+
+    def ms_per_stage(self, n_batches: int) -> Dict[str, float]:
+        """Per stage, the milliseconds of all its marks over ``n_batches``
+        (a batch's replicas summed)."""
+        self.synchronize()
+        tot: Dict[str, float] = {}
         for stage, a, b in self.marks:
             ms = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-            tot.setdefault(stage, []).append(ms)
-        return {s: float(np.mean(v)) for s, v in tot.items()}
+            tot[stage] = tot.get(stage, 0.0) + ms
+        return {s: v / n_batches for s, v in tot.items()}
 
 
 def parse_args(argv=None):
@@ -126,7 +148,7 @@ def to_u8(proj: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a[..., :1]) if is_mono_batch(a) else a
 
 
-def main(argv=None) -> Dict:
+def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
     args = parse_args(argv)
     from ..api import load_checkpoint, resolve_device
     from ..config.config import Config, parse_dict_action
@@ -136,6 +158,7 @@ def main(argv=None) -> Dict:
     from ..decode.postprocess import lane_maps_from_decode
     from ..models.nets import build_model, round_weights_as_flax_promotes
     from ..ops.voxelize import bev_image_from_points
+    from ..parallel.mesh import make_mesh, row_slice
     from ..registry import build_dataset
     from .export_lanes import lane_records
     from .las2bev import las2bev_params
@@ -153,6 +176,14 @@ def main(argv=None) -> Dict:
             "cfg.dataset.test: drop --from-las")
     kind = "las" if args.from_las else "lidar" if use_lidar else "image"
     device = resolve_device(args.device)
+    mesh = make_mesh(cfg, devices, device)
+    n_rep = len(mesh)
+    if n_rep > 1:
+        if cfg.batch_size % n_rep:
+            raise SystemExit(f"[stream_map] --batch {cfg.batch_size} must "
+                             f"divide over {n_rep} devices")
+        print(f"[stream_map] data-parallel over {n_rep} devices: "
+              f"{[str(d) for d in mesh]}")
 
     model = build_model(cfg, seed=cfg.get("seed", 0)
                         if args.seed is None else args.seed)
@@ -162,9 +193,13 @@ def main(argv=None) -> Dict:
     dtype = torch.bfloat16 if bf16 and not use_lidar else torch.float32
     if bf16 and use_lidar:
         round_weights_as_flax_promotes(model)
-    model = model.to(device=device, dtype=dtype)
-    if device.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
+    replicas = []
+    for dev in mesh:
+        rep = copy.deepcopy(model) if replicas else model
+        rep = rep.to(device=dev, dtype=dtype)
+        if dev.type == "cuda":
+            rep = rep.to(memory_format=torch.channels_last)
+        replicas.append((dev, rep))
 
     if args.from_las:
         ds = LasTiles(args.data_root, mode=args.split, cfg=cfg)
@@ -179,22 +214,36 @@ def main(argv=None) -> Dict:
     las_p = las2bev_params(cfg)
     img = cfg.list_img_size_xy[0]
     need_detail = bool(cfg.get("view_detail", False))
-    clock = StageClock(device)
+    clock = StageClock(mesh)
     voxelized = []  # the clock mark at the end of the LiDAR voxelize stage
     if kind == "lidar":
-        model.pcencoder.zfold_encoder.register_forward_pre_hook(
-            lambda module, inputs: voxelized.append(clock.now()))
+        for dev, rep in replicas:
+            rep.pcencoder.zfold_encoder.register_forward_pre_hook(
+                lambda module, inputs, dev=dev: voxelized.append(
+                    clock.now(dev)))
 
     def fwd_dec(batch, timed: bool):
-        """One batch on the card: upload, input stage, forward, decode."""
+        """One batch on the mesh: each replica's rows through upload, input
+        stage, forward and decode on its device; [(rows' decode, on the
+        device)] in replica order.  With more than one replica a ragged
+        batch is padded with zeros to the full batch first."""
         if kind == "image":
             host = (to_u8(batch["proj"]),)
         else:
             host = (np.asarray(batch["points"], np.float32),
                     np.asarray(batch["points_mask"], bool))
-        t = [clock.now()]
+        if n_rep > 1 and len(host[0]) < cfg.batch_size:
+            host = tuple(np.concatenate([a, np.zeros(
+                (cfg.batch_size - len(a),) + a.shape[1:], a.dtype)])
+                for a in host)
+        return [rows_fwd_dec(dev, rep, [np.ascontiguousarray(
+            a[row_slice(i, n_rep, len(a))]) for a in host], timed)
+            for i, (dev, rep) in enumerate(replicas)]
+
+    def rows_fwd_dec(device, model, host, timed: bool):
+        t = [clock.now(device)]
         dev = [torch.from_numpy(a).to(device) for a in host]
-        t.append(clock.now())
+        t.append(clock.now(device))
         with torch.inference_mode():
             if kind == "lidar":
                 voxelized.clear()
@@ -211,9 +260,9 @@ def main(argv=None) -> Dict:
                     x = dev[0].float() / 255.0
                 x = x.to(dtype)
                 x = x.expand(*x.shape[:-1], 3).contiguous()
-                t.append(clock.now())
+                t.append(clock.now(device))
                 out = model(x)
-            t.append(clock.now())
+            t.append(clock.now(device))
             keep = host_decode_view(decode_lanes(out, cfg))
             if not need_detail:
                 keep.pop("cls", None)
@@ -224,17 +273,19 @@ def main(argv=None) -> Dict:
                 keep["bi_seg_rows"], 0.0, 1.0) * 255.0).to(torch.uint8)
             keep["prop_v_ext"] = keep["prop_v_ext"].to(torch.uint8)
             keep["orient"] = keep["orient"].to(torch.int8)
-            t.append(clock.now())
+            t.append(clock.now(device))
         if timed:
             for stage, a, b in zip(STAGES[kind], t[:-1], t[1:]):
                 clock.add(stage, a, b)
         return keep
 
-    def postprocess(dec_dev, names):
-        """Readback, then tracker/NMS/semantics and the JSONs, on a worker.
+    def postprocess(decs, names):
+        """Readback of every replica's rows (in tile order, padded tiles
+        dropped), then tracker/NMS/semantics and the JSONs, on a worker.
         Returns (lane arc length px, readback s, host postprocess s)."""
         t0 = time.perf_counter()
-        dec = {k: v.cpu().numpy() for k, v in dec_dev.items()}
+        dec = {k: np.concatenate([d[k].cpu().numpy() for d in decs])[
+            :len(names)] for k in decs[0]}
         t_read = time.perf_counter() - t0
         t0 = time.perf_counter()
         maps = lane_maps_from_decode(dec, cfg)
@@ -258,8 +309,7 @@ def main(argv=None) -> Dict:
     # which is then processed again inside the timed loop: builds the CUDA
     # kernels and the native tracker, picks the convolution algorithms
     postprocess(fwd_dec(head, timed=False), head["image_name"])
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    clock.synchronize()
 
     n_tiles = n_batches = 0
     with ThreadPoolExecutor(6) as pool:
@@ -272,7 +322,7 @@ def main(argv=None) -> Dict:
             n_batches += 1
         results = [p.result() for p in pending]
         wall = time.perf_counter() - t0
-    stage_ms = clock.ms_per_stage()
+    stage_ms = clock.ms_per_stage(n_batches)
     stage_ms["postprocess_host"] = \
         float(np.mean([r[2] for r in results])) * 1e3
     stage_ms["readback"] = float(np.mean([r[1] for r in results])) * 1e3
@@ -282,7 +332,8 @@ def main(argv=None) -> Dict:
         / max(wall, 1e-9) * 3600.0
     rec = {
         "metric": "e2e_tiles_per_sec", "value": tiles_s, "unit": "tiles/s",
-        "device": str(device), "n_tiles": n_tiles, "n_batches": n_batches,
+        "device": str(device), "devices": [str(d) for d in mesh],
+        "n_tiles": n_tiles, "n_batches": n_batches,
         "batch": cfg.batch_size, "wall_s": wall, "km_lane_per_hour": km_lane_h,
         "input": kind, "points_per_tile": getattr(ds, "max_points", None),
         "stage_ms_per_batch": stage_ms,

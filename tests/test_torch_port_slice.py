@@ -148,7 +148,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "       'tools.img2pc', 'tools.merge_lines', 'tools.convert_data',\n"
         "       'models.transformer', 'models.column_head',\n"
         "       'models.row_head_base', 'models.resnet_fpn_family',\n"
-        "       'models.swin', 'utils.logger']\n"
+        "       'models.swin', 'utils.logger', 'parallel.dist',\n"
+        "       'parallel.mesh', 'tools.multihost_test']\n"
         "missing = [m for m in new\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
