@@ -170,7 +170,19 @@ or outside a checkout.  Phases, each of which fails the run:
    threshold and endpoint decisions are counted where they differ: at
    batch 8 against 4 they flip where the kernels' rounding does), one
    lane JSON per tile, K1 launched once per replica per batch (the
-   warm-up batch included).
+   warm-up batch included);
+22. the trained-checkpoint tools at full width over phase 7's tiles (with
+   phase 15's params) and phase 4's clouds: ``tools/soak_run`` with all
+   seven stages on the flagship (2 epochs = 4 steps of batch 8, the
+   evaluation, the endpoint table, the reference-exact flags, the stream
+   with its 3-D map, the LiDAR config's stream), ``tools/endp_sweep``
+   (thresholds 0.0 and 0.3, radius 10, one batch a cell),
+   ``tools/validate_ab`` (one repeat) and ``tools/stream_bench`` (2 runs
+   and a ``--from-las`` run): every stage record with the JAX soak's keys
+   and finite metrics, a merged map that is not empty, the approx_topk
+   and exact_topk rows equal, ``metrics_equal`` true; K1z launched by the
+   soak's LiDAR stream and K1 by the ``--from-las`` run (counts from each
+   ``stream_map`` child's record).
 
 Phases 9, 10, 12, 13, 15, 16 and 18 run with PyTorch's default precision
 flags (TF32 convolutions on) but where they say otherwise.  Each phase
@@ -178,8 +190,8 @@ prints its wall time.  Before the last line it prints ``{"kernels":
 [...]}`` (with each kernel's launches on the serving and the training
 path, the four configs of phases 12-13, the 3-D map paths of phase 15,
 the branches of phase 16, phase 18's Base head and flag runs, K1z's per
-rank in phase 20(d) and K1's over phase 21's two replicas); the last
-line is
+rank in phase 20(d), K1's over phase 21's two replicas and both on phase
+22's paths, ``launches_soak``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2656,6 +2668,162 @@ def phase_stream_replicas(root, out_root):
     return launches[2]
 
 
+# the stage records of the JAX package's soak (`tools/soak_run.py`), whose
+# keys the port's soak writes
+SOAK_KEYS = {
+    "train": {"wall_s", "resumed", "epochs", "batch", "steps", "val_curve",
+              "best_composite", "ckpt", "config"},
+    "validate": {"ckpt", "data_root", "wall_s", "coor_f1", "endp_f1",
+                 "endp_acc", "endp_recall", "composite", "semantic_f1",
+                 "semantic_acc", "semantic_recall"},
+    "endp_decode_table": {"ckpt", "approx_topk", "exact_topk", "exact_host"},
+    "ref_exact_occupancy_filter": {"default", "ref_exact"},
+    "ref_exact_lidar": {"ckpt", "default", "voxel_cap_first10",
+                        "bicubic_upsample"},
+    "stream_bev": {"wall_s", "bench", "rc", "merged_map", "merged_lines"},
+    "stream_lidar": {"wall_s", "bench", "rc", "points_per_tile", "ckpt",
+                     "points_per_sec"},
+}
+LANE_METRICS = {"coor_f1", "endp_f1", "endp_acc", "endp_recall",
+                "composite", "semantic_f1", "semantic_acc",
+                "semantic_recall"}
+
+
+def check_metrics(m, what):
+    """A validation record: the lane metrics, each finite."""
+    check(LANE_METRICS <= set(m), f"{what}: keys {sorted(m)}")
+    for k in LANE_METRICS:
+        check(math.isfinite(m[k]), f"{what}: {k} = {m[k]}")
+
+
+def phase_soak_tools(lidar_root, las_root, tmp):
+    """Phase 22: the trained-checkpoint tools at full width on the card,
+    over phase 7's 16 tiles (with phase 15's transform params) and phase
+    4's clouds: `tools/soak_run.py` with all seven stages on the flagship
+    (bf16, batch 8, 2 epochs = 4 steps, then evaluation, the endpoint
+    table, the reference-exact flags, the stream with its 3-D map and the
+    LiDAR config's stream), `tools/endp_sweep.py` over thresholds 0.0 and
+    0.3 at radius 10 (6 cells with the host knobs, one batch each),
+    `tools/validate_ab.py` with one repeat and `tools/stream_bench.py`
+    with 2 runs and a ``--from-las`` run.  Returns {kernel: {path:
+    launches}}: in this process and in each ``stream_map`` child (its
+    record's count)."""
+    from lanemapping_tpu_torch.tools import (endp_sweep, soak_run,
+                                             stream_bench, validate_ab)
+
+    torch_defaults()
+    out = os.path.join(tmp, "soak_tools")
+    reset_launches()
+    t0 = time.perf_counter()
+    rec = soak_run.main([
+        "--data-root", lidar_root, "--log-dir", out, "--stages",
+        "train,validate,endp,refkit,refkit_lidar,stream,lidar", "--epochs",
+        "2", "--batch", str(B), "--stream-batches", "1", "--lidar-root",
+        lidar_root, "--lidar-points", str(N_POINTS)])
+    soak_s = time.perf_counter() - t0
+    check(set(rec) == {"provenance", "launches", *SOAK_KEYS},
+          f"soak record {sorted(rec)}")
+    for stage, keys in SOAK_KEYS.items():
+        check(set(rec[stage]) == keys,
+              f"soak {stage}: keys {sorted(rec[stage])}")
+    check(rec["provenance"]["card"] == torch_card_name(),
+          f"soak provenance {rec['provenance']}")
+    train = rec["train"]
+    check(train["steps"] == 2 * (N_CLOUDS // B) and train["val_curve"],
+          f"soak train {train['steps']} steps, curve {train['val_curve']}")
+    for c in train["val_curve"]:
+        check_metrics(c, "soak val curve")
+    check_metrics(rec["validate"], "soak validate")
+    table = rec["endp_decode_table"]
+    for mode in ("approx_topk", "exact_topk", "exact_host"):
+        check_metrics(table[mode], f"endpoint table {mode}")
+    same = {k: v for k, v in table["approx_topk"].items() if k != "wall_s"}
+    check(same == {k: v for k, v in table["exact_topk"].items()
+                   if k != "wall_s"},
+          f"approx_topk {table['approx_topk']} != exact_topk "
+          f"{table['exact_topk']} (both are torch.topk)")
+    for stage in ("ref_exact_occupancy_filter", "ref_exact_lidar"):
+        for k, m in rec[stage].items():
+            if k != "ckpt":
+                check_metrics(m, f"{stage} {k}")
+    bev, lidar = rec["stream_bev"], rec["stream_lidar"]
+    for what, e in (("stream", bev), ("lidar", lidar)):
+        check(e["rc"] == 0 and e["bench"], f"soak {what}: {e}")
+        check(math.isfinite(e["bench"]["value"]), f"soak {what} tiles/s")
+    check(bev["merged_lines"] > 0, "the soak's merged map is empty")
+    check(lidar["bench"]["n_tiles"] == N_CLOUDS, f"LiDAR stream {lidar}")
+    in_process = read_launches()
+    check(rec["launches"]["train"] == {"bev_bin_mean": 0, "voxel_bin_mean": 0}
+          and sum(n for c in rec["launches"].values() for n in c.values())
+          == sum(in_process.values()),
+          f"soak launches {rec['launches']}, in process {in_process}")
+    log(f"soak, 7 stages: {soak_s:.3f} s; best composite "
+        f"{train['best_composite']} after {train['steps']} steps; endpoint "
+        f"table {[table[m]['composite'] for m in table if m != 'ckpt']}; "
+        f"merged map {bev['merged_lines']} lines; LiDAR stream "
+        f"{lidar['bench']['value']:.4f} tiles/s; launches in process "
+        f"{in_process}, stream {bev['bench']['launches']}, LiDAR "
+        f"{lidar['bench']['launches']}")
+
+    ckpt = train["ckpt"]
+    t0 = time.perf_counter()
+    sweep = endp_sweep.main(["--data-root", lidar_root, "--ckpt", ckpt,
+                             "--log-dir", os.path.join(out, "sweep"),
+                             "--max-batches", "1", "--thres", "0.0", "0.3",
+                             "--radii", "10"])
+    sweep_s = time.perf_counter() - t0
+    check(len(sweep["cells"]) == 6, f"{len(sweep['cells'])} sweep cells")
+    for c in sweep["cells"]:
+        check_metrics(c, f"sweep cell {c['label']}")
+    check(set(sweep["recommended_defaults"]) == {
+        "endp_score_thre", "endp_cluster_r", "endp_keep_line_ends"},
+        f"sweep defaults {sweep['recommended_defaults']}")
+    t0 = time.perf_counter()
+    ab = validate_ab.main(["--data-root", lidar_root, "--ckpt", ckpt,
+                           "--repeats", "1", "--log-dir",
+                           os.path.join(out, "ab")])
+    ab_s = time.perf_counter() - t0
+    check(ab["metrics_equal"] is True, f"validate A/B {ab['modes']}")
+    in_process_tools = read_launches()
+    t0 = time.perf_counter()
+    bench = stream_bench.main(["--data-root", lidar_root, "--ckpt", ckpt,
+                               "--runs", "2", "--max-batches", "1",
+                               "--from-las", "--las-root", las_root,
+                               "--log-dir", os.path.join(out, "bench")])
+    bench_s = time.perf_counter() - t0
+    check(bench["n_runs_ok"] == 2, f"stream_bench runs {bench['runs']}")
+    las = bench["from_las_run"]
+    check("value" in las and las["n_tiles"] == N_CLOUDS,
+          f"stream_bench --from-las {las}")
+    check(math.isfinite(bench["value"]), f"stream_bench {bench['value']}")
+    log(f"endp_sweep {sweep_s:.3f} s, best {sweep['best']['label']} "
+        f"(endpoint F1 {sweep['best']['endp_f1']}); validate_ab {ab_s:.3f} "
+        f"s, serial/pipelined {ab['speedup_serial_over_pipelined']:.4f}, "
+        f"metrics equal; stream_bench {bench_s:.3f} s, median "
+        f"{bench['value']:.4f} tiles/s, --from-las {las['value']:.4f} "
+        f"tiles/s, launches {las['launches']}")
+
+    launches = {}
+    for name in ("bev_bin_mean", "voxel_bin_mean"):
+        launches[name] = {
+            "soak_and_tools_in_process": in_process_tools[name],
+            "soak_stream": bev["bench"]["launches"][name],
+            "soak_lidar": lidar["bench"]["launches"][name],
+            "stream_bench_runs": [r["launches"][name]
+                                  for r in bench["runs"]],
+            "stream_bench_from_las": las["launches"][name]}
+    check(launches["voxel_bin_mean"]["soak_lidar"] > 0,
+          "the soak's LiDAR stream never launched K1z")
+    check(launches["bev_bin_mean"]["stream_bench_from_las"] > 0,
+          "stream_bench --from-las never launched K1")
+    return launches
+
+
+def torch_card_name():
+    import torch
+    return torch.cuda.get_device_name(0)
+
+
 def main():
     if not (os.path.isdir(os.path.join(HERE, "lanemapping_tpu_torch", "csrc"))
             and all(os.path.isfile(c) for c in (FLAGSHIP, TINY, LIDAR,
@@ -2757,6 +2925,9 @@ def main():
             20, phase_dist_two_ranks, lidar_root, os.path.join(tmp, "dist2"))
         k1["launches_replicas"] = phase(21, phase_stream_replicas, root,
                                         os.path.join(tmp, "replicas"))
+        soak = phase(22, phase_soak_tools, lidar_root, root, tmp)
+        for k in (k1, k1z):
+            k["launches_soak"] = soak[k["name"]]
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

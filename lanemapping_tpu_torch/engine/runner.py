@@ -604,3 +604,13 @@ def _write_lanes(out_dir: str, name: str, ply: np.ndarray) -> None:
 def _write_png(out_dir: str, name: str, img: np.ndarray) -> None:
     from PIL import Image
     Image.fromarray(img).save(os.path.join(out_dir, name))
+
+
+def load_config_and_runner(path_config: str, log_dir: Optional[str] = None,
+                           device: Union[str, torch.device] = "cuda"):
+    """(Config, Runner) of a config file (JAX `runner.py:643-647`,
+    reference `runner.py:57-66`), on the card unless ``device`` says
+    otherwise."""
+    from ..config.config import Config
+    cfg = Config.fromfile(path_config)
+    return cfg, Runner(cfg, log_dir=log_dir, device=device)

@@ -1,5 +1,6 @@
-"""Per-tile lane-seq JSON records (the ``lane_records`` of
-`lanemapping_tpu/tools/export_lanes.py`, copied without jax).
+"""Per-tile lane-seq JSON export (port of
+`lanemapping_tpu/tools/export_lanes.py`; it feeds the offline
+global-mapping tools).
 
 Parity with the reference's ``write_lane_vertex`` path
 (`baseline/engine/runner.py:823-828`, `baseline/utils/io_utils.py:58-93`):
@@ -29,3 +30,11 @@ def lane_records(ply: np.ndarray, row_anchor_stride: int = 8,
             "seq": verts,
         })
     return recs
+
+
+def export_lane_seqs(runner, loader, out_dir: str, max_batches=None):
+    """One lane JSON per tile of ``loader`` under ``out_dir`` (JAX
+    `export_lanes.py:38-57`): the Runner's forward and decode
+    (``Runner._eval_decode``), then the host postprocess, as
+    ``Runner.infer_and_export`` runs them."""
+    runner.infer_and_export(loader, out_dir, max_batches=max_batches)

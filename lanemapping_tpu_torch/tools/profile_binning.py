@@ -57,19 +57,27 @@ def profile(fn, iters: int):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        host_us = (time.perf_counter() - t0) / iters * 1e6
-        torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = ev.cuda_time_total
-        if us > 0:
-            kernels[ev.key[:80]] = us / iters
+    for _ in range(2):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            host_us = (time.perf_counter() - t0) / iters * 1e6
+            torch.cuda.synchronize()
+        kernels = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            if us > 0:
+                kernels[ev.key[:80]] = us / iters
+        if kernels:
+            break
+        # the second profiler session of one process on the H100 handed
+        # back a trace with no kernel in it once: the calls are profiled
+        # once more (a second empty trace fails the caller's check)
+        print("[profile_binning] the profiler recorded no kernel; "
+              "profiling again", flush=True)
     return kernels, host_us
 
 

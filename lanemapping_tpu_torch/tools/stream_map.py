@@ -25,7 +25,8 @@ on a worker pool while the next batch runs on the card.
 
     python -m lanemapping_tpu_torch.tools.stream_map <config> <data_root> \\
         [--from-las] [--split infer_only] [--ckpt model.pth] [--batch 8] \\
-        [--params-dir <data_root>/cropped_tiff_param] [--device cuda]
+        [--params-dir <data_root>/cropped_tiff_param] [--preload] \\
+        [--device cuda]
 
 One ``<out>/lanes_2d/<name>.json`` is written per tile.  Without ``--ckpt``
 the weights are random, drawn from ``--seed`` (default ``cfg.seed``).
@@ -52,7 +53,10 @@ per batch (device time from CUDA events for upload, the input stage
 (rasterize, voxelize or normalize), forward and decode, summed over the
 replicas; host time for the postprocess workers); after a 3-D lift also
 the paths of the 3-D lane directory and of the merged and down-sampled
-maps, and the lift's wall seconds (outside the timed region).
+maps, and the lift's wall seconds (outside the timed region); and the
+binning kernels' launches in the run (``launches``, warm-up included).
+``--preload`` reads every batch into host memory first (JAX
+`tools/stream_map.py:242-246`), so the timed region leaves out the loader.
 """
 
 from __future__ import annotations
@@ -134,6 +138,10 @@ def parse_args(argv=None):
                     help="random-weight seed when no --ckpt is given")
     ap.add_argument("--bench-json", action="store_true",
                     help="print the run's numbers as one JSON line")
+    ap.add_argument("--preload", action="store_true",
+                    help="read every batch into host memory before the "
+                    "timed region, which then excludes the loader (PNG or "
+                    ".las decode)")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     return ap.parse_args(argv)
 
@@ -156,6 +164,8 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
     from ..data.loader import Loader
     from ..decode.lane_decode import decode_lanes, host_decode_view
     from ..decode.postprocess import lane_maps_from_decode
+    from ..kernels.bev_bin import bev_bin_mean
+    from ..kernels.voxel_bin import voxel_bin_mean
     from ..models.nets import build_model, round_weights_as_flax_promotes
     from ..ops.voxelize import bev_image_from_points
     from ..parallel.mesh import make_mesh, row_slice
@@ -301,7 +311,11 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
                 json.dump(recs, f)
         return px, t_read, time.perf_counter() - t0
 
+    kernels = (bev_bin_mean, voxel_bin_mean)
+    launched = [k.launches for k in kernels]
     stream = itertools.islice(iter(loader), args.max_batches)
+    if args.preload:
+        stream = iter(list(stream))
     head = next(stream, None)
     if head is None:
         raise SystemExit("[stream_map] no tiles to process")
@@ -339,7 +353,10 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
         "stage_ms_per_batch": stage_ms,
         "dtype": str(dtype).replace("torch.", ""),
         "weights": os.path.abspath(args.ckpt) if args.ckpt else "random-init",
-        "lanes_dir": lanes_dir,
+        "lanes_dir": lanes_dir, "preload": args.preload,
+        # the binning kernels' launches in this run, the warm-up included
+        "launches": {k.__name__: k.launches - n
+                     for k, n in zip(kernels, launched)},
     }
     print(f"[stream_map] {n_tiles} tiles in {wall:.3f}s "
           f"({tiles_s:.3f} tiles/s end-to-end on {device})")

@@ -149,7 +149,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "       'models.transformer', 'models.column_head',\n"
         "       'models.row_head_base', 'models.resnet_fpn_family',\n"
         "       'models.swin', 'utils.logger', 'parallel.dist',\n"
-        "       'parallel.mesh', 'tools.multihost_test']\n"
+        "       'parallel.mesh', 'tools.multihost_test',\n"
+        "       'tools.soak_run', 'tools.endp_sweep', 'tools.validate_ab',\n"
+        "       'tools.stream_bench', 'tools.regen_endp_sigma',\n"
+        "       'tools.soak_recipe', 'tools.export_lanes']\n"
         "missing = [m for m in new\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"

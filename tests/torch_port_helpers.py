@@ -7,11 +7,14 @@ numpy arrays.  The flax variables are drawn directly in the shapes that
 the tiny model costs ~20 s on this CPU, the shape trace ~1 s.
 """
 
+import contextlib
+import importlib.util
 import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -364,3 +367,49 @@ def jax_grads(jmodel, cfg_j):
         return jax.value_and_grad(inner, has_aux=True)(params)
 
     return run
+
+
+# -- the JAX package's root scripts ------------------------------------------
+
+def jax_script(name):
+    """A root script of the JAX package as a module."""
+    path = os.path.join(REPO, "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"jax_tools_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def seeded_jax_runners(variables):
+    """JAX Runners built in this context start from ``variables`` instead
+    of running ``model.init``."""
+    import lanemapping_tpu.engine.runner as jr
+    from lanemapping_tpu.engine.state import TrainState
+
+    def create(model, tx, rng, example):
+        params = jax.tree.map(jnp.asarray, variables["params"])
+        return TrainState(params=params,
+                          batch_stats=jax.tree.map(jnp.asarray,
+                                                   variables["batch_stats"]),
+                          opt_state=tx.init(params),
+                          step=jnp.zeros((), jnp.int32))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jr, "create_train_state", create)
+        yield
+
+
+@contextlib.contextmanager
+def recorded_validates(*runner_classes):
+    """[(class's module, metrics, runner)] of every ``validate`` of these
+    classes."""
+    seen = []
+    with pytest.MonkeyPatch.context() as mp:
+        for cls in runner_classes:
+            def wrapped(self, *a, _orig=cls.validate, _cls=cls, **kw):
+                m = _orig(self, *a, **kw)
+                seen.append((_cls.__module__, dict(m), self))
+                return m
+            mp.setattr(cls, "validate", wrapped)
+        yield seen
