@@ -183,6 +183,18 @@ or outside a checkout.  Phases, each of which fails the run:
    and exact_topk rows equal, ``metrics_equal`` true; K1z launched by the
    soak's LiDAR stream and K1 by the ``--from-las`` run (counts from each
    ``stream_map`` child's record).
+23. the measurement tools at full width: ``tools/bench`` serving the
+   flagship at batch 8 (tiles/s, peak GiB, a finite digest) and
+   ``--train`` on the flagship and the LiDAR config (batch 8, 3 timed
+   steps after a warm-up step; 0 < ``train_mfu`` <= 1 against the card's
+   dense bf16 peak; K1z launched once per LiDAR step, the warm-up's
+   included, and equal to its plain version on the leg's first batch of
+   uniform clouds at phase 6's bar), ``tools/profile_train`` over 2 steps
+   (a convolution category with device time, a busy share in (0, 1]),
+   one ``tools/train_mfu_sweep`` cell in its child process without error,
+   and ``tools/config_smoke`` on RowRef (5 steps and one validate batch
+   over phase 7's tiles, the JAX entry's keys, finite losses and
+   metrics).
 
 Phases 9, 10, 12, 13, 15, 16 and 18 run with PyTorch's default precision
 flags (TF32 convolutions on) but where they say otherwise.  Each phase
@@ -191,7 +203,8 @@ prints its wall time.  Before the last line it prints ``{"kernels":
 path, the four configs of phases 12-13, the 3-D map paths of phase 15,
 the branches of phase 16, phase 18's Base head and flag runs, K1z's per
 rank in phase 20(d), K1's over phase 21's two replicas and both on phase
-22's paths, ``launches_soak``); the last line is
+22's paths, ``launches_soak``, and phase 23's, ``launches_bench``); the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2819,6 +2832,154 @@ def phase_soak_tools(lidar_root, las_root, tmp):
     return launches
 
 
+# the entry keys of the JAX package's `tools/config_smoke.py`
+SMOKE_KEYS = {"config", "batch", "steps", "compile_plus_first_step_s",
+              "sec_per_step", "loss_first", "loss_last", "loss_decreased",
+              "val_wall_s", "val", "provenance"}
+BENCH_ITERS = 3
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_bench_tools(lidar_root, tmp):
+    """Phase 23: the measurement tools at full width on the card: `tools/
+    bench.py` serving the flagship (batch 8) and training the flagship and
+    the LiDAR config (batch 8, remat as the root script's default, one
+    warm-up and 3 timed steps), K1z held to its plain version on the LiDAR
+    leg's first batch, `tools/profile_train.py` over 2 steps,
+    `tools/train_mfu_sweep.py` with one cell in its child process and
+    `tools/config_smoke.py` on RowRef (5 steps and one validate batch over
+    phase 7's tiles).  Returns {kernel: {path: launches}}, each path's
+    counts zeroed just before it and read just after."""
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.kernels import voxel_bin
+    from lanemapping_tpu_torch.tools import (bench, config_smoke,
+                                             profile_train, train_mfu_sweep)
+
+    torch_defaults()
+    out = os.path.join(tmp, "bench_tools")
+    launches = {}
+    n_steps = BENCH_ITERS + 1  # the warm-up step launches too
+
+    reset_launches()
+    serve = bench.main(["--batch", str(B), "--iters", str(BENCH_ITERS),
+                        "--warmup", "1"])
+    launches["serving"] = read_launches()
+    check(serve["card"] == torch_card_name(), f"bench card {serve}")
+    check(serve["value"] > 0 and math.isfinite(serve["digest_mean"])
+          and serve["hbm_highwater_gb"] > 0 and 0 < serve["mfu"] <= 1,
+          f"bench serving {serve}")
+    log(f"bench serving, batch {B}: {serve['value']} tiles/s, "
+        f"{serve['ms_per_pass']:.3f} ms a pass, peak "
+        f"{serve['hbm_highwater_gb']} GiB, forward {serve['forward_flops']} "
+        f"FLOP, mfu {serve['mfu']:.5f}, digest mean {serve['digest_mean']}")
+    free_card()
+
+    reset_launches()
+    train = bench.main(["--train", "--batch", str(B), "--iters",
+                        str(BENCH_ITERS)])
+    launches["train_flagship"] = read_launches()
+    check(0 < train["train_mfu"] <= 1 and train["hbm_highwater_gb"] > 0
+          and train["flops_method"].startswith("FlopCounterMode on meta"),
+          f"bench --train {train}")
+    log(f"bench --train flagship, batch {B}, remat "
+        f"{train['remat_policy']}: {train['value']} s/step, "
+        f"{train['step_flops']} FLOP a step, train_mfu "
+        f"{train['train_mfu']}, peak {train['hbm_highwater_gb']} GiB, "
+        f"losses {train['losses']}")
+    free_card()
+
+    # K1z on the LiDAR leg's first batch: uniform clouds over the whole
+    # range, z included, against its plain version at phase 6's bar
+    args = bench.parse_args(["--train", "--config", LIDAR])
+    cfg = bench.train_config(args)
+    first = bench.train_batch(cfg, B, np.random.RandomState(0))
+    pts = first["points"].cuda()
+    msk = first["points_mask"].cuda()
+    pc, grid = tuple(cfg.lidar_point_cloud_range), tuple(cfg.grid_size)
+    m = voxel_bin.voxel_bin_mean(pts, msk, pc, grid)
+    m_ref = voxel_bin.voxel_bin_mean_ref(pts, msk, pc, grid)
+    C = pts.shape[-1]
+    X, Y, Z = grid
+    err = float((m - m_ref).abs().max())
+    occ = int(((m.view(B, Y, X, Z, C) != 0).any(-1)
+               != (m_ref.view(B, Y, X, Z, C) != 0).any(-1)).sum())
+    check(bool(torch.allclose(m, m_ref, rtol=1e-5, atol=1e-5)) and occ == 0,
+          f"K1z on the bench's clouds: max abs err {err}, occupancy "
+          f"mismatch {occ}")
+    log(f"K1z vs plain on the bench's first LiDAR batch ({B} x "
+        f"{pts.shape[1]} uniform points): max_abs_err {err:.3e}, occupied "
+        f"voxels {int((m_ref.view(B, Y, X, Z, C) != 0).any(-1).sum())}")
+    del first, pts, msk, m, m_ref
+    free_card()
+
+    reset_launches()
+    lidar = bench.main(["--train", "--config", LIDAR, "--batch", str(B),
+                        "--iters", str(BENCH_ITERS)])
+    launches["train_lidar"] = read_launches()
+    check(launches["train_lidar"]["voxel_bin_mean"] == n_steps
+          == lidar["launches"]["voxel_bin_mean"],
+          f"K1z launches on the LiDAR leg {launches['train_lidar']}, "
+          f"record {lidar['launches']}, steps {n_steps}")
+    check(0 < lidar["train_mfu"] <= 1, f"bench --train LiDAR {lidar}")
+    log(f"bench --train LiDAR, batch {B}, {lidar['lidar_points']} points: "
+        f"{lidar['value']} s/step, {lidar['step_flops']} FLOP a step, "
+        f"train_mfu {lidar['train_mfu']}, peak {lidar['hbm_highwater_gb']} "
+        f"GiB")
+    free_card()
+
+    reset_launches()
+    prof = profile_train.main(["--steps", "2", "--log-dir",
+                               os.path.join(out, "profile")])
+    launches["profile_train"] = read_launches()
+    cats = {c["name"]: c for c in prof["by_category"]}
+    check("convolution" in cats and cats["convolution"]["total_us"] > 0,
+          f"profile categories {sorted(cats)}")
+    check(0 < prof["device_busy_share"] <= 1,
+          f"busy share {prof['device_busy_share']}")
+    log(f"profile_train, 2 steps: {prof['per_step_ms']:.3f} device ms a "
+        f"step, busy share {prof['device_busy_share']:.4f}; categories "
+        + ", ".join(f"{n} {c['pct']:.2f}%" for n, c in cats.items())
+        + "; top " + "; ".join(f"{o['pct']:.2f}% {o['name'][:70]}"
+                               for o in prof["top_ops"][:5]))
+    free_card()
+
+    sweep = train_mfu_sweep.main([
+        "--batches", str(B), "--policies", "none", "--also-none-at", "0",
+        "--iters", "2", "--log-dir", os.path.join(out, "sweep")])
+    (cell,) = sweep["cells"]
+    check("error" not in cell and 0 < cell["train_mfu"] <= 1,
+          f"sweep cell {cell}")
+    log(f"train_mfu_sweep cell {cell}")
+
+    reset_launches()
+    smoke = config_smoke.main([
+        "--data-root", lidar_root, "--configs",
+        os.path.splitext(ZOO["rowref"][0])[0], "--steps", "5",
+        "--val-batches", "1", "--log-dir", os.path.join(out, "smoke")])
+    launches["config_smoke"] = read_launches()
+    (entry,) = smoke["configs"].values()
+    check(set(entry) == SMOKE_KEYS, f"config_smoke entry {entry}")
+    check(math.isfinite(entry["loss_first"])
+          and math.isfinite(entry["loss_last"]) and entry["val"]
+          and all(math.isfinite(v) for v in entry["val"].values()),
+          f"config_smoke entry {entry}")
+    check(entry["provenance"]["card"] == torch_card_name(),
+          f"config_smoke provenance {entry['provenance']}")
+    log(f"config_smoke RowRef: {entry['sec_per_step']} s/step, first step "
+        f"{entry['compile_plus_first_step_s']} s, loss {entry['loss_first']}"
+        f" -> {entry['loss_last']}, val {entry['val']}")
+    free_card()
+    return {k: {path: c[k] for path, c in launches.items()}
+            for k in ("bev_bin_mean", "voxel_bin_mean")}
+
+
 def torch_card_name():
     import torch
     return torch.cuda.get_device_name(0)
@@ -2928,6 +3089,9 @@ def main():
         soak = phase(22, phase_soak_tools, lidar_root, root, tmp)
         for k in (k1, k1z):
             k["launches_soak"] = soak[k["name"]]
+        bench_launches = phase(23, phase_bench_tools, lidar_root, tmp)
+        for k in (k1, k1z):
+            k["launches_bench"] = bench_launches[k["name"]]
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)
