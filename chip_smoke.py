@@ -195,6 +195,20 @@ or outside a checkout.  Phases, each of which fails the run:
    and ``tools/config_smoke`` on RowRef (5 steps and one validate batch
    over phase 7's tiles, the JAX entry's keys, finite losses and
    metrics).
+24. the shape limits the port repaired (the JAX package has neither):
+   K1z at 12 columns a point ((cell, point index) records) on phase 6's
+   clouds with 8 seeded columns, against its plain version at phase 6's
+   bar, timed in turns with the plain version and ``index_reduce_``
+   beside its bound, with its launch count; the FPN's p2 resize
+   ([128,256,144,144] -> 288^2, beyond 2^31 - 1 elements) split in two on
+   the card, bf16 output equal to its unsplit halves bit for bit with the
+   peak at the output, float32 input gradient within 1e-5 of theirs
+   (largest value); ``tools/bench`` serving the flagship at batch 128
+   (tiles/s, peak GiB, a finite ``[batch]`` digest); the float32 forward
+   and device decode of 104 seeded tiles (128 do not fit the card in
+   float32), TF32 off, against the same tiles as two batches of 52:
+   continuous decode arrays within rel-max 1e-4, decisions differing in
+   at most ``MAX_FLIP_SHARE``.
 
 Phases 9, 10, 12, 13, 15, 16 and 18 run with PyTorch's default precision
 flags (TF32 convolutions on) but where they say otherwise.  Each phase
@@ -203,8 +217,9 @@ prints its wall time.  Before the last line it prints ``{"kernels":
 path, the four configs of phases 12-13, the 3-D map paths of phase 15,
 the branches of phase 16, phase 18's Base head and flag runs, K1z's per
 rank in phase 20(d), K1's over phase 21's two replicas and both on phase
-22's paths, ``launches_soak``, and phase 23's, ``launches_bench``); the
-last line is
+22's paths, ``launches_soak``, and phase 23's, ``launches_bench``; K1z's
+entry carries phase 24's figures at 12 columns, ``wide_cols``); the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2980,6 +2995,234 @@ def phase_bench_tools(lidar_root, tmp):
             for k in ("bev_bin_mean", "voxel_bin_mean")}
 
 
+# phase 24: the shape limits the port repaired.  The FPN's p2 maps hold
+# 256 x 288 x 288 = 21,233,664 elements a tile, so a resize there reaches
+# PyTorch's 2^31 - 1 at 102 tiles; 128 splits it in two.
+SPLIT_BATCH = 128
+# the float32 forward of 128 tiles needs more than the card's 79.18 GiB
+# (out of memory with 72.27 GiB allocated on an H100 80GB HBM3); 104
+# tiles, two halves of 52, still split every p2 resize
+F32_SPLIT_BATCH = 104
+K1Z_WIDE_COLS = 12  # beyond the 8 floats a K1z record carries whole
+
+
+def k1z_wide(root, stems, pc_range):
+    """K1z at ``K1Z_WIDE_COLS`` columns (phase 6's clouds and 8 seeded
+    uniform columns) against its plain version, timed in turns with the
+    plain version and ``index_reduce_``, beside its bound."""
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.kernels import voxel_bin
+
+    pts_np, msk_np = load_lidar_batch(root, stems[:B], N_POINTS)
+    C = K1Z_WIDE_COLS
+    extra = np.random.RandomState(24).rand(
+        *pts_np.shape[:2], C - pts_np.shape[-1]).astype(np.float32)
+    pts = torch.from_numpy(np.concatenate([pts_np, extra], -1)).cuda()
+    msk = torch.from_numpy(msk_np).cuda()
+    X, Y, Z = GRID
+    before = voxel_bin.voxel_bin_mean.launches
+    m = voxel_bin.voxel_bin_mean(pts, msk, pc_range, GRID)
+    launches = voxel_bin.voxel_bin_mean.launches - before
+    m_ref = voxel_bin.voxel_bin_mean_ref(pts, msk, pc_range, GRID)
+    _, c_ref = voxel_bin.voxel_bin_sums_ref(pts, msk, pc_range, GRID)
+    torch.cuda.synchronize()
+    max_abs_err = float((m - m_ref).abs().max())
+    occ = int(((m.view(B, Y, X, Z, C) != 0).any(-1)
+               != (m_ref.view(B, Y, X, Z, C) != 0).any(-1)).sum())
+    n_valid = int(c_ref.sum())
+    check(launches == 1, f"K1z at C={C}: {launches} launches for one call")
+    check(bool(torch.allclose(m, m_ref, rtol=1e-5, atol=1e-5)) and occ == 0
+          and n_valid > 0, f"K1z at C={C}: max abs err {max_abs_err}, "
+          f"occupancy mismatch {occ}, {n_valid} binned points")
+    ijk, valid = voxel_bin.voxel_cells(pts, pc_range, GRID)
+    valid = valid & msk
+    tile = torch.arange(B, device=pts.device)[:, None]
+    lin = (((tile * Y + ijk[..., 1]) * X + ijk[..., 0]) * Z + ijk[..., 2])
+    lin_v, feats_v = lin[valid], pts[valid]
+
+    def library():
+        return torch.zeros(B * Y * X * Z, C, device=pts.device).index_reduce_(
+            0, lin_v, feats_v, "mean", include_self=False)
+
+    check(bool(torch.allclose(library().view(B, Y, X, Z * C), m_ref,
+                              rtol=1e-5, atol=1e-5)),
+          "index_reduce_ yardstick means at C=12")
+    t, runs = time_in_turns({
+        "kernel": lambda: voxel_bin.voxel_bin_mean(pts, msk, pc_range,
+                                                   GRID),
+        "plain": lambda: voxel_bin.voxel_bin_mean_ref(pts, msk, pc_range,
+                                                      GRID),
+        "library": library}, iters=10)
+    n_bytes = pts.numel() * 4 + msk.numel() + m.numel() * 4
+    n_ops = 6 * B * N_POINTS + (C + 1) * n_valid + m.numel()
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S) * 1e3
+    log(f"24 K1z at C={C} ((cell, point index) records): {launches} launch "
+        f"for the checked call, {n_valid} binned points, max_abs_err "
+        f"{max_abs_err:.3e}; kernel {fmt_times(t['kernel'])}, plain "
+        f"{fmt_times(t['plain'])}, index_reduce_ {fmt_times(t['library'])}, "
+        f"bound {bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB at 3.35 TB/s); "
+        f"plan {voxel_bin.band_plan(B, N_POINTS, Y, X, Z, C, 2)}; runs "
+        f"{runs}")
+    return {"cols": C, "launches": launches, "max_abs_err": max_abs_err,
+            "ms": t["kernel"]["ms"], "plain_ms": t["plain"]["ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": t["library"]["ms"], "library": "index_reduce_"}
+
+
+def split_resize_on_card():
+    """The FPN's p2 resize at ``SPLIT_BATCH`` tiles, split in two, against
+    the unsplit resize of each half: bf16 without autograd bit for bit,
+    with the peak above the input at the output's size (one preallocated
+    output); float32 under autograd, the input gradient within 1e-5 of
+    its largest value (the channels-last backward accumulates with
+    atomics in no fixed order)."""
+    import torch
+    from lanemapping_tpu_torch.ops.interp import resize_bilinear_ac
+
+    half = SPLIT_BATCH // 2
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn((SPLIT_BATCH, 256, IMG // 8, IMG // 8), generator=gen,
+                    device="cuda", dtype=torch.bfloat16).to(
+        memory_format=torch.channels_last)
+    out_bytes = x.numel() * 4 * x.element_size()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        y = resize_bilinear_ac(x, IMG // 4, IMG // 4)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        check(y.is_contiguous(memory_format=torch.channels_last)
+              and y.dtype == torch.bfloat16, "split resize layout")
+        same = all(torch.equal(y[i:i + half],
+                               resize_bilinear_ac(x[i:i + half], IMG // 4,
+                                                  IMG // 4))
+                   for i in (0, half))
+    check(same, "the split resize differs from its halves on the card")
+    check(extra <= 1.01 * out_bytes, f"split resize peak {extra} B above "
+          f"the input for a {out_bytes} B output")
+    del y
+    xf = x.float().requires_grad_(True)
+    del x
+    g = torch.randn((SPLIT_BATCH, 256, IMG // 4, IMG // 4), generator=gen,
+                    device="cuda").to(memory_format=torch.channels_last)
+    resize_bilinear_ac(xf, IMG // 4, IMG // 4).backward(g)
+    err, scale = 0.0, 0.0
+    for i in (0, half):
+        xi = xf.detach()[i:i + half].clone().requires_grad_(True)
+        resize_bilinear_ac(xi, IMG // 4, IMG // 4).backward(g[i:i + half])
+        err = max(err, float((xf.grad[i:i + half] - xi.grad).abs().max()))
+        scale = max(scale, float(xi.grad.abs().max()))
+        del xi
+    check(err <= 1e-5 * scale, f"split resize gradient differs by {err} "
+          f"(largest {scale})")
+    log(f"24 split resize [{SPLIT_BATCH},256,{IMG // 8},{IMG // 8}] -> "
+        f"{IMG // 4}^2 on the card: bf16 output equal to its two unsplit "
+        f"halves bit for bit, peak {extra / 2 ** 30:.3f} GiB above the "
+        f"input for a {out_bytes / 2 ** 30:.3f} GiB output; float32 input "
+        f"gradient within {err:.3e} of the halves' (largest {scale:.3e})")
+    del xf, g
+    free_card()
+
+
+def split_forward_vs_halves(n_tiles):
+    """The flagship's float32 forward and device decode of ``n_tiles``
+    seeded tiles, TF32 off, against the same tiles as two batches of
+    ``n_tiles // 2``: every continuous decode array within rel-max 1e-4
+    (cuDNN may pick other convolution algorithms at the two batches, whose
+    float32 sums round differently; ``cls_offset`` and ``cls_exp``, which
+    follow the column argmax, where ``cls`` agrees), decision elements
+    differing in at most a ``MAX_FLIP_SHARE`` of places."""
+    import numpy as np
+    import torch
+    from lanemapping_tpu_torch.config.config import Config
+    from lanemapping_tpu_torch.decode.lane_decode import decode_lanes
+    from lanemapping_tpu_torch.tools import bench
+
+    cfg = Config.fromfile(FLAGSHIP)
+    cfg.compute_dtype = "float32"
+    pin_fp32()
+    try:
+        model, dtype = bench.serving_model(cfg, torch.device("cuda"))
+        check(dtype == torch.float32, f"serving dtype {dtype}")
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        tiles = torch.rand((n_tiles, IMG, IMG, 3), generator=gen,
+                           device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+
+        def run(x):
+            with torch.inference_mode():
+                dec = decode_lanes(model(x), cfg)
+            return {k: v.float().cpu().numpy() for k, v in dec.items()}
+
+        whole = run(tiles)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        half = n_tiles // 2
+        parts = [run(tiles[i:i + half]) for i in (0, half)]
+    finally:
+        torch_defaults()
+    del model, tiles
+    free_card()
+    errs, flips, n_dec = {}, {}, 0
+    same_cls = whole["cls"] == np.concatenate([p["cls"] for p in parts])
+    for k, a in whole.items():
+        b = np.concatenate([p[k] for p in parts])
+        check(a.shape == b.shape and np.isfinite(a).all(),
+              f"24 decode {k}: shapes {a.shape} {b.shape} or not finite")
+        if k in ("cls_offset", "cls_exp"):
+            a, b = a[same_cls], b[same_cls]
+        elif k not in CONTINUOUS_DECODE + ("prop_cls_conf",):
+            # (the column softmax, continuous too: phase 21 holds it
+            # exactly at equal batch shapes)
+            flips[k] = int((a != b).sum())
+            n_dec += a.size
+            continue
+        if a.size:
+            errs[k] = float(np.abs(a - b).max() / max(1e-3, np.abs(b).max()))
+    share = sum(flips.values()) / max(n_dec, 1)
+    log(f"24 float32 forward + decode of {n_tiles} tiles (TF32 off, peak "
+        f"{peak:.3f} GiB) against {half} + {half}: continuous arrays' "
+        f"rel-max {errs} (bound 1e-4), decision elements that differ "
+        f"{flips}, {sum(flips.values())} of {n_dec} ({share:.3e}, bound "
+        f"{MAX_FLIP_SHARE})")
+    check(max(errs.values()) < 1e-4, f"24: continuous rel-max {errs}")
+    check(share <= MAX_FLIP_SHARE, f"24: {flips} of {n_dec} decisions "
+          f"differ ({share:.3e} > {MAX_FLIP_SHARE})")
+
+
+def phase_shape_limits(lidar_root, stems, pc_range):
+    """Phase 24: the two shape limits the port repaired, on the card.  K1z
+    at 12 columns against its plain version; the FPN's p2 resize split at
+    ``SPLIT_BATCH`` tiles against its halves; `tools/bench.py` serving
+    the flagship at ``SPLIT_BATCH`` tiles (beyond the 101 of the unsplit
+    resize), finishing with a finite ``[batch]`` digest; the float32
+    forward and decode of ``F32_SPLIT_BATCH`` tiles against two halves.
+    Returns K1z's figures at 12 columns."""
+    import torch
+    from lanemapping_tpu_torch.tools import bench
+
+    torch_defaults()
+    wide = k1z_wide(lidar_root, stems, pc_range)
+    free_card()
+    split_resize_on_card()
+    reset_launches()
+    serve = bench.main(["--batch", str(SPLIT_BATCH), "--iters", "2",
+                        "--warmup", "1"])
+    check(read_launches() == {"bev_bin_mean": 0, "voxel_bin_mean": 0},
+          "bench serving launched a binning kernel")
+    check(serve["batch"] == SPLIT_BATCH and math.isfinite(
+        serve["digest_mean"]) and serve["value"] > 0,
+          f"bench serving at {SPLIT_BATCH} {serve}")
+    log(f"24 bench serving, batch {SPLIT_BATCH}: {serve['value']} tiles/s, "
+        f"{serve['ms_per_pass']:.3f} ms a pass, peak "
+        f"{serve['hbm_highwater_gb']} GiB, digest mean "
+        f"{serve['digest_mean']}")
+    free_card()
+    split_forward_vs_halves(F32_SPLIT_BATCH)
+    return wide
+
+
 def torch_card_name():
     import torch
     return torch.cuda.get_device_name(0)
@@ -3092,6 +3335,8 @@ def main():
         bench_launches = phase(23, phase_bench_tools, lidar_root, tmp)
         for k in (k1, k1z):
             k["launches_bench"] = bench_launches[k["name"]]
+        k1z["wide_cols"] = phase(24, phase_shape_limits, lidar_root, stems,
+                                 DEFAULT_PC_RANGE)
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

@@ -13,7 +13,12 @@
 // band, a band being one y row of one tile, cut into x-chunks
 // (`kernels/bin_bands.py::band_plan`; 192 x at 576 x 576 x 10 with C = 4,
 // 38.4 KB of shared memory).  A point's record is the point itself, 16
-// bytes at C = 4.  Pass (D), here: one CTA per band zeroes its shared sums
+// bytes at C = 4, up to C = 8 (pass (C) sorts 4,096 records in shared
+// memory, 32 bytes each at most).  A wider point's record is (cell index
+// within the band, point index), 8 bytes, and pass (D) reads the point's C
+// columns from the input: K1z takes any C whose band fits the card's
+// shared memory, as the TPU kernel, one pass per column, took any C.
+// Pass (D), here: one CTA per band zeroes its shared sums
 // [cells, C] and counts [cells], finds each record's voxel again with the
 // same arithmetic, accumulates with shared-memory atomics and writes
 // sum / max(count, 1) for the band's
@@ -34,7 +39,9 @@
 // What bounds it: bytes.  The function must read the points (4 * C bytes
 // each) and the mask once and write the mean once (425 MB at B = 8 on the
 // 576 x 576 x 10 grid with C = 4).  The bucketing adds a second read of the
-// points and a write and a read of each binned point.
+// points and a write and a read of each binned point.  Beyond 8 columns
+// pass (D) gathers each binned point's C columns from the input again and
+// adds C shared-memory atomics a point into bands of up to 196 KB.
 //
 // Shared-memory atomics add in a different order on every run: counts are
 // exact, means are not bit-reproducible.
@@ -43,11 +50,16 @@
 
 namespace {
 
+// kIndexed: the record is (cell index, point index), for C > 8.  A
+// template argument, not a runtime test: a live cell index costs the
+// scatter pass of the C <= 8 records registers it does not need.
+template <bool kIndexed>
 struct VoxelBinner {
   const float* __restrict__ points;
   const uint8_t* __restrict__ mask;
   int n_vals;  // C: every column of a point is averaged
-  int rec;     // floats per record: C rounded up to a power of two
+  int rec;     // floats per record: C rounded up to a power of two, or
+               // 2 for (cell index, point index) where C > 8
   bool vec4;   // C == 4, 16-byte aligned: one float4 load a point
   float lo_x, lo_y, lo_z, size_x, size_y, size_z;
   int gx, gy, gz;
@@ -90,10 +102,17 @@ struct VoxelBinner {
     return q.valid && voxel(q.x, q.y, q.z, row, col, sub);
   }
 
-  // the record is the point itself, zero-padded to rec floats: (D) finds
-  // its voxel again from x, y, z with the same arithmetic
-  __device__ __forceinline__ void record(const Point& q, long long i, int,
-                                         float* dst) const {
+  // the cell index within the band and the point index where kIndexed
+  // (`band_plan` keeps B * N * 2 within int32); else the point itself,
+  // zero-padded to rec floats: (D) finds its voxel again from x, y, z
+  // with the same arithmetic
+  __device__ __forceinline__ void record(const Point& q, long long i,
+                                         int local, float* dst) const {
+    if constexpr (kIndexed) {
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(__int_as_float(local), __int_as_float((int)i));
+      return;
+    }
     if (n_vals == 4) {
       *reinterpret_cast<float4*>(dst) = make_float4(q.x, q.y, q.z, q.w);
       return;
@@ -105,7 +124,8 @@ struct VoxelBinner {
 
 // (D) one CTA per band: shared sums [cells * C], padded to 16 bytes, then
 // counts [cells].
-__global__ void voxel_mean_kernel(VoxelBinner bn, bins::BandGeom g,
+template <bool kIndexed>
+__global__ void voxel_mean_kernel(VoxelBinner<kIndexed> bn, bins::BandGeom g,
                                   const int* __restrict__ band_off,
                                   const float* __restrict__ slot_rec,
                                   float* __restrict__ out) {
@@ -124,27 +144,41 @@ __global__ void voxel_mean_kernel(VoxelBinner bn, bins::BandGeom g,
   __syncthreads();
 
   const int seg_end = band_off[band + 1];
-  for (int s = band_off[band] + threadIdx.x; s < seg_end; s += blockDim.x) {
-    const float* r = slot_rec + (long long)s * bn.rec;
-    float4 f;
-    if (C == 4) {
-      f = *reinterpret_cast<const float4*>(r);
-    } else {
-      f = make_float4(r[0], r[1], r[2], 0.0f);
+  if constexpr (kIndexed) {
+    for (int s = band_off[band] + threadIdx.x; s < seg_end;
+         s += blockDim.x) {
+      const float2 r = reinterpret_cast<const float2*>(slot_rec)[s];
+      const int l = __float_as_int(r.x);
+      const float* p = bn.points + (long long)__float_as_int(r.y) * C;
+      float* dst = s_sum + l * C;
+      for (int c = 0; c < C; ++c) atomicAdd(dst + c, p[c]);
+      atomicAdd(s_cnt + l, 1.0f);
     }
-    int row, col, sub;
-    if (!bn.voxel(f.x, f.y, f.z, row, col, sub)) continue;  // never: binned
-    const int l = g.local(row, col, sub);
-    float* dst = s_sum + l * C;
-    if (C == 4) {
-      atomicAdd(dst + 0, f.x);
-      atomicAdd(dst + 1, f.y);
-      atomicAdd(dst + 2, f.z);
-      atomicAdd(dst + 3, f.w);
-    } else {
-      for (int c = 0; c < C; ++c) atomicAdd(dst + c, r[c]);
+  } else {
+    for (int s = band_off[band] + threadIdx.x; s < seg_end;
+         s += blockDim.x) {
+      const float* r = slot_rec + (long long)s * bn.rec;
+      float4 f;
+      if (C == 4) {
+        f = *reinterpret_cast<const float4*>(r);
+      } else {
+        f = make_float4(r[0], r[1], r[2], 0.0f);
+      }
+      int row, col, sub;
+      if (!bn.voxel(f.x, f.y, f.z, row, col, sub))
+        continue;  // never: binned
+      const int l = g.local(row, col, sub);
+      float* dst = s_sum + l * C;
+      if (C == 4) {
+        atomicAdd(dst + 0, f.x);
+        atomicAdd(dst + 1, f.y);
+        atomicAdd(dst + 2, f.z);
+        atomicAdd(dst + 3, f.w);
+      } else {
+        for (int c = 0; c < C; ++c) atomicAdd(dst + c, r[c]);
+      }
+      atomicAdd(s_cnt + l, 1.0f);
     }
-    atomicAdd(s_cnt + l, 1.0f);
   }
   __syncthreads();
 
@@ -180,11 +214,38 @@ __global__ void voxel_mean_kernel(VoxelBinner bn, bins::BandGeom g,
 }
 
 constexpr int MEAN_BLOCK = 256;
+// (C > 8) a band of up to 196 KB leaves one CTA an SM, whose threads wait
+// on the gathers of their points' columns: four times the threads
+constexpr int WIDE_MEAN_BLOCK = 1024;
+
+template <bool kIndexed>
+cudaError_t bin_mean(const VoxelBinner<kIndexed>& bn,
+                     const bins::BandGeom& g, int n_tiles, int n_points,
+                     int smem_bytes, int* band_count, int* band_off,
+                     int* band_cursor, float* slot_rec, float* out,
+                     cudaStream_t stream) {
+  cudaError_t err = bins::bucket_points(bn, g, n_tiles, n_points, band_count,
+                                        band_off, band_cursor, slot_rec,
+                                        stream);
+  if (err != cudaSuccess) return err;
+  const unsigned n_bands = (unsigned)n_tiles * g.bands_per_tile;
+  if (n_bands > 0) {
+    err = bins::allow_smem<voxel_mean_kernel<kIndexed>>((size_t)smem_bytes);
+    if (err != cudaSuccess) return err;
+    constexpr int block = kIndexed ? WIDE_MEAN_BLOCK : MEAN_BLOCK;
+    voxel_mean_kernel<kIndexed><<<n_bands, block, smem_bytes, stream>>>(
+        bn, g, band_off, slot_rec, out);
+    err = cudaGetLastError();
+  }
+  return err;
+}
 
 }  // namespace
 
 // Plan (`kernels/bin_bands.py::band_plan`): rows_per_band, x_chunk,
-// n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record.
+// n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record
+// (`kernels/voxel_bin.py::record_floats`: a point of 3 or more columns
+// takes 4 or more, so 2 floats are a (cell index, point index) record).
 extern "C" int lm_voxel_bin_mean(
     const float* points, const uint8_t* mask, int n_tiles, int n_points,
     int n_cols, float lo_x, float lo_y, float lo_z, float size_x,
@@ -196,19 +257,14 @@ extern "C" int lm_voxel_bin_mean(
   const bins::BandGeom g{gy, gx, gz, rows_per_band, x_chunk, n_xchunks,
                          bands_per_tile};
   const bool vec4 = n_cols == 4 && ((uintptr_t)points & 15) == 0;
-  const VoxelBinner bn{points, mask, n_cols, rec, vec4, lo_x, lo_y, lo_z,
-                       size_x, size_y, size_z, gx, gy, gz};
-  cudaError_t err = bins::bucket_points(bn, g, n_tiles, n_points, band_count,
-                                        band_off, band_cursor, slot_rec,
-                                        stream);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned n_bands = (unsigned)n_tiles * bands_per_tile;
-  if (n_bands > 0) {
-    err = bins::allow_smem<voxel_mean_kernel>((size_t)smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    voxel_mean_kernel<<<n_bands, MEAN_BLOCK, smem_bytes, stream>>>(
-        bn, g, band_off, slot_rec, out);
-    err = cudaGetLastError();
+  if (rec == 2) {
+    const VoxelBinner<true> bn{points, mask, n_cols, rec, vec4, lo_x, lo_y,
+                               lo_z, size_x, size_y, size_z, gx, gy, gz};
+    return (int)bin_mean(bn, g, n_tiles, n_points, smem_bytes, band_count,
+                         band_off, band_cursor, slot_rec, out, stream);
   }
-  return (int)err;
+  const VoxelBinner<false> bn{points, mask, n_cols, rec, vec4, lo_x, lo_y,
+                              lo_z, size_x, size_y, size_z, gx, gy, gz};
+  return (int)bin_mean(bn, g, n_tiles, n_points, smem_bytes, band_count,
+                       band_off, band_cursor, slot_rec, out, stream);
 }

@@ -135,14 +135,16 @@ def band_plan(n_tiles: int, n_points: int, height: int, width: int,
     """The bands of a [height, width, depth] grid with ``n_vals`` sums per
     cell, for ``n_tiles`` tiles of ``n_points`` points each, whose records
     are ``rec`` floats (a power of two: K1's [value, cell index] is 2,
-    K1z's record is the point itself).
+    K1z's is the point itself up to 8 columns, else [cell index, point
+    index], 2; `voxel_bin.record_floats`).
 
     Bands are as large as ``BAND_BUDGET`` bytes of shared memory allow:
     whole rows while a row fits, else one row in even x-chunks.  When a
     tile has too many bands for pass (C)'s bookkeeping, the budget grows to
     the card's limit.  Raises where even that does not fit: pass (C) holds
-    4,096 records in shared memory, so ``rec`` is at most 8 (K1z takes at
-    most 8 columns).  Plans are cached by their arguments."""
+    4,096 records in shared memory, so ``rec`` is at most 8, and one
+    band's cells must fit (on the 576 x 576 x 10 grid, ``n_vals`` up to
+    251).  Plans are cached by their arguments."""
     if min(height, width, depth, n_vals) < 1 or min(n_tiles, n_points) < 0:
         raise ValueError(f"bad grid {height}x{width}x{depth}, n_vals "
                          f"{n_vals}, {n_tiles} tiles of {n_points} points")

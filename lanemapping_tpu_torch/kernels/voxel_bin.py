@@ -80,9 +80,18 @@ def voxel_bin_sums_ref(points: torch.Tensor, mask: torch.Tensor,
     return sums.view(B, Y, X, Z, C), cnts.view(B, Y, X, Z)
 
 
+# the widest point K1z carries whole between its passes (pass (C) sorts
+# 4,096 records in shared memory)
+MAX_INLINE_COLS = 8
+
+
 def record_floats(n_cols: int) -> int:
-    """Floats of K1z's record between its passes: the point itself, padded
-    to a power of two."""
+    """Floats of K1z's record between its passes: up to
+    ``MAX_INLINE_COLS`` columns the point itself, padded to a power of two;
+    beyond, (cell index, point index), and the accumulate pass reads the
+    point's columns from the input."""
+    if n_cols > MAX_INLINE_COLS:
+        return 2
     return 1 << (n_cols - 1).bit_length()
 
 
@@ -102,7 +111,9 @@ def voxel_bin_mean(points: torch.Tensor, mask: torch.Tensor,
                    ) -> torch.Tensor:
     """[B,N,C] float32 points, [B,N] bool mask -> per-voxel means
     [B, Y, X, Z*C] float32 on the points' device, for ``grid`` = (X, Y, Z).
-    CUDA tensors run the K1z kernel, for 3 <= C <= 8 (``band_plan``);
+    CUDA tensors run the K1z kernel, for any C >= 3 whose band plan fits
+    the card's shared memory (``band_plan``: one voxel column of Z * (C + 1)
+    floats, C up to 251 on the LiDAR config's 576 x 576 x 10 grid);
     ``voxel_bin_mean.launches`` counts its launches."""
     if points.device.type == "cpu":
         return voxel_bin_mean_ref(points, mask, pc_range, grid)

@@ -5,7 +5,9 @@ Sweeps batch size x remat policy (``none``, ``full``, ``dots``) through
 child process a cell, and writes the table: s/step, train MFU against the
 card's dense bf16 peak, train tiles/s, the step's model FLOPs and peak
 memory.  A cell that fails (out of memory at a large batch without remat)
-is recorded with the tail of its errors and the sweep goes on.
+is recorded with the tail of its errors and the sweep goes on.  Its cells
+also serve `tools/batch_ceiling.py`, which runs ``bench`` serving through
+them (no remat policy) as well.
 
     python -m lanemapping_tpu_torch.tools.train_mfu_sweep \\
         [--batches 4 8 16] [--policies full dots] [--also-none-at 4] \\
@@ -25,32 +27,42 @@ import os
 import subprocess
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+OOM_MARKERS = ("CUDA out of memory", "OutOfMemoryError")
 
 
-def bench_cmd(batch: int, remat: str, iters: int, sets: str = "",
-              device: str = "cuda", config: Optional[str] = None) -> list:
-    """The ``bench --train`` command of one cell."""
-    cmd = [sys.executable, "-m", "lanemapping_tpu_torch.tools.bench",
-           "--train", "--batch", str(batch), "--iters", str(iters),
-           "--device", device]
-    cmd += ["--no-remat"] if remat == "none" else [
-        "--remat", "--remat-policy", remat]
+def bench_cmd(batch: int, remat: Optional[str], iters: Optional[int],
+              sets: str = "", device: str = "cuda",
+              config: Optional[str] = None, extra: Sequence[str] = ()) -> list:
+    """The ``bench`` command of one cell: ``--train`` under the remat policy
+    ``remat`` (``none``, ``full``, ``dots``), or serving where ``remat`` is
+    None; ``iters`` None keeps bench's own; ``extra`` further bench flags."""
+    cmd = [sys.executable, "-m", "lanemapping_tpu_torch.tools.bench"]
+    cmd += ["--train"] if remat is not None else []
+    cmd += ["--batch", str(batch)]
+    cmd += ["--iters", str(iters)] if iters is not None else []
+    cmd += ["--device", device]
+    if remat is not None:
+        cmd += ["--no-remat"] if remat == "none" else [
+            "--remat", "--remat-policy", remat]
     if sets:
         cmd += ["--set", sets]
     if config:
         cmd += ["--config", config]
-    return cmd
+    return cmd + list(extra)
 
 
-def parse_cell(batch: int, remat: str, returncode: int, stdout: str,
-               stderr: str, wall_s: float, sets: str = "") -> Dict:
-    """A sweep cell from a ``bench --train`` child's exit code and output:
-    its record's figures, or the tail of its errors when it failed or
-    printed no JSON record."""
+def parse_cell(batch: int, remat: Optional[str], returncode: int,
+               stdout: str, stderr: str, wall_s: float,
+               sets: str = "") -> Dict:
+    """A sweep cell from a ``bench`` child's exit code and output: its
+    record's figures (serving's tiles/s, peak and digest; the training
+    step's s/step, MFU, tiles/s, FLOPs and peak), or the tail of its errors,
+    and whether they are an out-of-memory error (``oom``), when it failed
+    or printed no JSON record."""
     cell = {"batch": batch, "remat_policy": remat, "wall_s": wall_s}
     if sets:
         cell["set"] = sets
@@ -65,6 +77,13 @@ def parse_cell(batch: int, remat: str, returncode: int, stdout: str,
     if returncode != 0 or rec is None:
         cell["error"] = (stderr or stdout)[-1500:]
         cell["rc"] = returncode
+        cell["oom"] = any(m in stderr + stdout for m in OOM_MARKERS)
+        return cell
+    if rec.get("unit") == "tiles/s":
+        cell.update({"tiles_per_sec": rec["value"],
+                     "ms_per_pass": rec.get("ms_per_pass"),
+                     "digest_mean": rec.get("digest_mean"),
+                     "hbm_highwater_gb": rec.get("hbm_highwater_gb")})
         return cell
     cell.update({
         "sec_per_step": rec["value"],
@@ -76,12 +95,14 @@ def parse_cell(batch: int, remat: str, returncode: int, stdout: str,
     return cell
 
 
-def run_cell(batch: int, remat: str, iters: int, sets: str = "",
-             device: str = "cuda", config: Optional[str] = None,
-             timeout: int = 3600) -> Dict:
+def run_cell(batch: int, remat: Optional[str], iters: Optional[int],
+             sets: str = "", device: str = "cuda",
+             config: Optional[str] = None, timeout: int = 3600,
+             extra: Sequence[str] = ()) -> Dict:
     """One cell in a child process run from the repository's root."""
     t0 = time.perf_counter()
-    p = subprocess.run(bench_cmd(batch, remat, iters, sets, device, config),
+    p = subprocess.run(bench_cmd(batch, remat, iters, sets, device, config,
+                                 extra),
                        cwd=REPO, capture_output=True, text=True,
                        timeout=timeout)
     return parse_cell(batch, remat, p.returncode, p.stdout, p.stderr,

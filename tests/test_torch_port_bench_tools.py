@@ -131,9 +131,10 @@ def test_sweep_parses_a_cell_and_records_a_failed_one():
                     "hbm_highwater_gb": 15.3}
     oom = parse_cell(16, "none", 1, out[:10], "torch.OutOfMemoryError: "
                      "CUDA out of memory", 30.0, sets="s2d_stem=True")
-    assert oom["rc"] == 1 and "out of memory" in oom["error"]
+    assert oom["rc"] == 1 and "out of memory" in oom["error"] and oom["oom"]
     assert oom["set"] == "s2d_stem=True" and "sec_per_step" not in oom
-    assert "error" in parse_cell(4, "full", 0, "no record", "", 1.0)
+    no_record = parse_cell(4, "full", 0, "no record", "", 1.0)
+    assert "error" in no_record and not no_record["oom"]
     best = best_cells([cell, oom, dict(cell, batch=4, train_mfu=0.05,
                                        tiles_per_sec_train=50.0)])
     assert best["best_mfu"]["batch"] == 8
@@ -145,6 +146,15 @@ def test_sweep_parses_a_cell_and_records_a_failed_one():
                        "--remat", "--remat-policy", "dots", "--set",
                        "a=1;b=2"]
     assert "--no-remat" in bench_cmd(4, "none", 3)
+    assert bench_cmd(64, None, None, extra=["--warmup", "1"])[1:] == [
+        "-m", "lanemapping_tpu_torch.tools.bench", "--batch", "64",
+        "--device", "cuda", "--warmup", "1"]
+    serve = parse_cell(64, None, 0, json.dumps(
+        {"value": 219.9, "unit": "tiles/s", "ms_per_pass": 291.0,
+         "digest_mean": 466.4, "hbm_highwater_gb": 21.8}), "", 9.0)
+    assert serve == {"batch": 64, "remat_policy": None, "wall_s": 9.0,
+                     "tiles_per_sec": 219.9, "ms_per_pass": 291.0,
+                     "digest_mean": 466.4, "hbm_highwater_gb": 21.8}
 
 
 def test_sweep_runs_cells_in_children_and_records_a_failure(tmp_path):

@@ -17,7 +17,8 @@ import torch
 PC_RANGE = (-15.0, -25.0, -2.0, 15.0, 25.0, 2.0)
 
 # (n_tiles, n_points, height, width, depth, n_vals, record floats): K1's
-# record is [value, cell index], K1z's the point itself, padded
+# record is [value, cell index], K1z's the point itself, padded, up to 8
+# columns, else [cell index, point index]
 CASES = {
     "flagship_1152": (8, 1 << 19, 1152, 1152, 1, 1, 2),
     "lidar_576x576x10": (8, 1 << 19, 576, 576, 10, 4, 4),
@@ -25,6 +26,8 @@ CASES = {
     "tiny_lidar_96x96x4": (2, 4096, 96, 96, 4, 4, 4),
     **{f"lidar_C{c}": (8, 1 << 19, 576, 576, 10, c, 4 if c <= 4 else 8)
        for c in range(3, 9)},
+    **{f"lidar_C{c}": (8, 1 << 19, 576, 576, 10, c, 2)
+       for c in (9, 12, 16, 24)},
     "row_beyond_budget": (1, 1000, 64, 8192, 10, 8, 8),
 }
 
@@ -119,13 +122,15 @@ def simulate_passes(plan, row, col, sub, vals, valid):
     return out, cnt_out
 
 
-@pytest.mark.parametrize("grid", [
-    (96, 96, 4),   # whole-row bands
-    (251, 6, 10),  # a 50 KB row: x-chunks of one row, ragged last chunk
-], ids=["rows", "xchunks"])
-def test_pass_model_on_plan_matches_plain_voxel_mean(grid):
+@pytest.mark.parametrize("grid,n_cols", [
+    ((96, 96, 4), 4),   # whole-row bands
+    ((251, 6, 10), 4),  # a 50 KB row: x-chunks of one row, ragged last chunk
+    ((96, 96, 4), 12),  # 12 columns: (cell, point index) records
+], ids=["rows", "xchunks", "c12"])
+def test_pass_model_on_plan_matches_plain_voxel_mean(grid, n_cols):
     from lanemapping_tpu_torch.kernels.bin_bands import band_plan
-    from lanemapping_tpu_torch.kernels.voxel_bin import (voxel_bin_mean_ref,
+    from lanemapping_tpu_torch.kernels.voxel_bin import (record_floats,
+                                                         voxel_bin_mean_ref,
                                                          voxel_bin_sums_ref,
                                                          voxel_cells)
 
@@ -135,9 +140,9 @@ def test_pass_model_on_plan_matches_plain_voxel_mean(grid):
     hi = np.asarray(PC_RANGE[3:], np.float32)
     n = 5000
     pts = np.concatenate([rng.uniform(lo - 1, hi + 1, (2, n, 3)),
-                          rng.rand(2, n, 1)], -1).astype(np.float32)
+                          rng.rand(2, n, n_cols - 3)], -1).astype(np.float32)
     mask = rng.rand(2, n) > 0.2
-    plan = band_plan(2, n, Y, X, Z, 4, 4)
+    plan = band_plan(2, n, Y, X, Z, n_cols, record_floats(n_cols))
     if X > 96:
         assert plan.n_xchunks > 1 and X % plan.x_chunk != 0
     ijk, valid = voxel_cells(torch.tensor(pts), PC_RANGE, grid)

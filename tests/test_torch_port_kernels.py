@@ -189,6 +189,10 @@ def test_voxel_binning_wrapper_refuses_other_devices():
     ((576, 576, 10), "spread", 3), ((96, 96, 4), "spread", 6),
     ((41, 13, 3), "spread", 3),  # bands that start off 16-byte alignment
     ((2001, 8, 4), "spread", 4),  # 4 ragged x-chunks of a 160 KB row
+    # wider than the 8 floats a record carries: (cell, point index) records
+    ((576, 576, 10), "spread", 9), ((576, 576, 10), "spread", 12),
+    ((576, 576, 10), "spread", 16), ((576, 576, 10), "spread", 24),
+    ((576, 576, 10), "one_band", 12),
 ])
 def test_voxel_bin_kernel_matches_plain_version_on_card(cuda_device, grid,
                                                         layout, n_cols):
@@ -220,7 +224,8 @@ def test_voxel_bin_kernel_rejects_bad_inputs_on_card(cuda_device):
     bad = [(pts.double(), mask), (pts[:, ::2], mask[:, ::2]),
            (pts[..., :2].contiguous(), mask), (pts, mask.float()),
            (pts, mask.cpu()), (pts[0], mask[0]),
-           (torch.cat([pts, pts, pts[..., :1]], -1), mask)]  # C = 9 > 8
+           # one voxel column of 4 * (C + 1) floats beyond shared memory
+           (torch.cat([pts] * 3750, -1), mask)]
     for p, m in bad:
         with pytest.raises(ValueError):
             voxel_bin.voxel_bin_mean(p, m, PC_RANGE, grid)

@@ -154,7 +154,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "       'tools.stream_bench', 'tools.regen_endp_sigma',\n"
         "       'tools.soak_recipe', 'tools.export_lanes',\n"
         "       'tools.bench', 'tools.profile_train',\n"
-        "       'tools.train_mfu_sweep', 'tools.config_smoke']\n"
+        "       'tools.train_mfu_sweep', 'tools.config_smoke',\n"
+        "       'tools.batch_ceiling']\n"
         "missing = [m for m in new\n"
         "           if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
