@@ -209,6 +209,22 @@ or outside a checkout.  Phases, each of which fails the run:
    float32), TF32 off, against the same tiles as two batches of 52:
    continuous decode arrays within rel-max 1e-4, decisions differing in
    at most ``MAX_FLIP_SHARE``.
+25. the port on the card against the JAX package's golden outputs at the
+   deployment shapes (``tests/torch_port_golden/``, read by
+   ``tests/torch_port_golden.py``, which imports no JAX): weights drawn
+   from the manifests' seeds, inputs rebuilt from seeds and held to the
+   stored digests; P1 (``LaneMapper.map_arrays``, float32, TF32 off) on
+   two 1152 px tiles at batch 1 and first and last in a batch of 104, P2
+   (the bf16 stream's device program) at batch 1 and in a batch of 128,
+   P3 (``--from-las`` in float32 through K1) and P4 (the LiDAR stream
+   through K1z, float32 on bf16-rounded weights, TF32 off): head outputs
+   within rel-max 2e-3, subsampled maps' moments within rel 1e-4, the
+   same lanes (columns within 1e-2 px at all but 1e-3 of the vertices,
+   endpoints equal, semantic_map differing at <= 1e-4 of its pixels), P3's BEV tile within abs 1e-5 and
+   its count map exact, P4's grid row sums within rel 1e-6 and sampled
+   cells within abs 1e-5, and in bf16 each output's distance from the
+   float32 golden within 1.5 times JAX's own bf16 distance + 1e-2; one
+   line of largest errors and lane figures per run.
 
 Phases 9, 10, 12, 13, 15, 16 and 18 run with PyTorch's default precision
 flags (TF32 convolutions on) but where they say otherwise.  Each phase
@@ -217,8 +233,9 @@ prints its wall time.  Before the last line it prints ``{"kernels":
 path, the four configs of phases 12-13, the 3-D map paths of phase 15,
 the branches of phase 16, phase 18's Base head and flag runs, K1z's per
 rank in phase 20(d), K1's over phase 21's two replicas and both on phase
-22's paths, ``launches_soak``, and phase 23's, ``launches_bench``; K1z's
-entry carries phase 24's figures at 12 columns, ``wide_cols``); the last
+22's paths, ``launches_soak``, phase 23's, ``launches_bench``, and phase
+25's, ``launches_golden``; K1z's entry carries phase 24's figures at 12
+columns, ``wide_cols``); the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -444,7 +461,7 @@ def phase_k1(root, pc_range):
     # precomputed outside the timed call
     lo, size = bev_bin.bin_geometry(pc_range, IMG)
     q = (pts[..., :2] - torch.as_tensor(lo, device=pts.device)) \
-        / torch.as_tensor(size, device=pts.device)
+        * torch.as_tensor(1.0 / size, device=pts.device)
     valid = msk & ((q >= 0) & (q < IMG)).all(-1)
     ij = torch.where(valid[..., None], torch.floor(q),
                      torch.zeros((), device=pts.device)).long()
@@ -3223,6 +3240,69 @@ def phase_shape_limits(lidar_root, stems, pc_range):
     return wide
 
 
+# phase 25: the port on the card against the JAX package's golden outputs
+# (`tests/torch_port_golden/`, written by `tests/torch_port_make_golden.py`
+# with JAX on a CPU; `tests/torch_port_golden.py` reads them without JAX),
+# at phase 24's batches, which split every p2 resize in two
+
+
+def golden_module():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_port_golden
+    return torch_port_golden
+
+
+def golden_line(path, what, fig):
+    """One printed line of a run's largest errors and lane figures."""
+    log(f"25 {path} {what}: {json.dumps(fig, default=float)}")
+
+
+def phase_golden():
+    """Phase 25: the port on the card held to the JAX package's outputs at
+    the deployment shapes, weights drawn from the manifests' seeds, inputs
+    rebuilt from seeds and checked against the stored digests: P1
+    (``LaneMapper.map_arrays``, float32, TF32 off) at batch 1 and with the
+    golden tiles first and last of a batch of ``F32_SPLIT_BATCH``, P2 (the
+    bf16 stream's device program) at batch 1 and inside a batch of
+    ``SPLIT_BATCH``, P3 (``--from-las``, float32, K1) and P4 (the
+    LiDAR stream, K1z), every bar of ``torch_port_golden`` asserted.
+    Returns the binning kernels' launches in the phase."""
+    G = golden_module()
+    f32 = G.load_golden("p1")
+    reset_launches()
+    pin_fp32()
+    try:
+        golden_line("P1", "batch 1", G.hold_p1(G.run_p1("cuda"), f32,
+                                                "25 P1 batch 1"))
+        free_card()
+        golden_line("P1", f"batch {F32_SPLIT_BATCH}", G.hold_p1(
+            G.run_p1("cuda", batch=F32_SPLIT_BATCH), f32,
+            f"25 P1 batch {F32_SPLIT_BATCH}"))
+        free_card()
+        golden_line("P3", "K1, float32", G.hold_p3(
+            G.run_p3("cuda"), G.load_golden("p3"), "25 P3"))
+        launches = read_launches()
+        check(launches == {"bev_bin_mean": 2, "voxel_bin_mean": 0},
+              f"25: P1 and P3 launched {launches} (P3: the tile and the "
+              "count map)")
+        golden_line("P4", "K1z, float32 on bf16-rounded weights",
+                    G.hold_p4(G.run_p4("cuda"), G.load_golden("p4"),
+                              "25 P4"))
+    finally:
+        torch_defaults()
+    bf16 = G.load_golden("p2")
+    for batch in (None, SPLIT_BATCH):
+        run = G.run_p2("cuda", batch=batch)
+        check(run["dtype"] == "torch.bfloat16", f"25 P2 dtype {run['dtype']}")
+        golden_line("P2", f"bf16, batch {batch or 1}",
+                    G.hold_p2(run, bf16, f32, f"25 P2 batch {batch or 1}"))
+        free_card()
+    launches = read_launches()
+    check(launches == {"bev_bin_mean": 2, "voxel_bin_mean": 1},
+          f"25: launches {launches}")
+    return launches
+
+
 def torch_card_name():
     import torch
     return torch.cuda.get_device_name(0)
@@ -3230,13 +3310,15 @@ def torch_card_name():
 
 def main():
     if not (os.path.isdir(os.path.join(HERE, "lanemapping_tpu_torch", "csrc"))
+            and os.path.isdir(os.path.join(HERE, "tests", "torch_port_golden"))
             and all(os.path.isfile(c) for c in (FLAGSHIP, TINY, LIDAR,
                                                  TINY_LIDAR))
             and all(os.path.isfile(os.path.join(HERE, "configs", f))
                     for f, _ in ZOO.values())):
         print("[chip_smoke] FAIL: run from the root of a lanemapping_tpu "
-              "checkout (lanemapping_tpu_torch/ and configs/ beside this "
-              "script)", file=sys.stderr)
+              "checkout (lanemapping_tpu_torch/, configs/ and the golden "
+              "set tests/torch_port_golden/ beside this script)",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     import torch
@@ -3337,6 +3419,10 @@ def main():
             k["launches_bench"] = bench_launches[k["name"]]
         k1z["wide_cols"] = phase(24, phase_shape_limits, lidar_root, stems,
                                  DEFAULT_PC_RANGE)
+        free_card()
+        golden = phase(25, phase_golden)
+        for k in (k1, k1z):
+            k["launches_golden"] = golden[k["name"]]
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

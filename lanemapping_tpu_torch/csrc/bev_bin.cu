@@ -22,13 +22,15 @@
 // now meet in shared memory.
 //
 // Fused in (A) and (C): the range test against pc_range, the point mask,
-// the cell index floor((p - lo) / size), the `flip_rows` row (applied before
-// the band is formed) and the value column.  `lo` and `size = (hi - lo) /
-// img` arrive as float32 computed on the host exactly as the JAX package
-// computes them, and this file is compiled WITHOUT --use_fast_math, so the
-// division is IEEE and a point on a cell border lands in the same cell as in
-// JAX.  The range test is made on the float quotient (0 <= q < img), which
-// for finite q equals JAX's test on floor(q) and rejects NaN.
+// the cell index floor((p - lo) * inv), the `flip_rows` row (applied before
+// the band is formed) and the value column.  `lo` and `inv = 1 / ((hi -
+// lo) / img)` arrive as float32 computed on the host as the JAX package's
+// jitted programs compute them (XLA turns the division by the constant cell
+// size into a product with its float32 reciprocal), and this file is
+// compiled WITHOUT --use_fast_math, so a point on a cell border lands in the
+// same cell as in JAX.  The range test is made on the float cell coordinate
+// (0 <= q < img), which for finite q equals JAX's test on floor(q) and
+// rejects NaN.
 //
 // What bounds it: bytes.  The function must read the points and the mask
 // once and write the two [B, img, img] float32 images once.  The bucketing
@@ -47,7 +49,7 @@ struct BevBinner {
   const uint8_t* __restrict__ mask;
   int n_cols;
   bool vec4;  // 4 columns, 16-byte aligned: one float4 load a point
-  float lo_x, lo_y, size_x, size_y;
+  float lo_x, lo_y, inv_x, inv_y;
   int img, value_col, flip_rows;
   static constexpr int rec = 2;  // [value, cell index within the band]
 
@@ -74,8 +76,8 @@ struct BevBinner {
   __device__ __forceinline__ bool cell(const Point& q, int& row, int& col,
                                        int& sub) const {
     if (!q.valid) return false;
-    const float qx = (q.x - lo_x) / size_x;
-    const float qy = (q.y - lo_y) / size_y;
+    const float qx = (q.x - lo_x) * inv_x;
+    const float qy = (q.y - lo_y) * inv_y;
     const float fimg = (float)img;
     if (!(qx >= 0.0f && qx < fimg && qy >= 0.0f && qy < fimg)) return false;
     col = (int)floorf(qx);
@@ -154,7 +156,7 @@ constexpr int MEAN_BLOCK = 256;
 // n_xchunks, bands_per_tile, smem_bytes of (D), rec floats per record (2).
 extern "C" int lm_bev_bin_mean(
     const float* points, const uint8_t* mask, int n_tiles, int n_points,
-    int n_cols, float lo_x, float lo_y, float size_x, float size_y, int img,
+    int n_cols, float lo_x, float lo_y, float inv_x, float inv_y, int img,
     int value_col, int flip_rows, int rows_per_band, int x_chunk,
     int n_xchunks, int bands_per_tile, int smem_bytes, int rec,
     int* band_count, int* band_off, int* band_cursor, float* slot_rec,
@@ -164,8 +166,8 @@ extern "C" int lm_bev_bin_mean(
   const bins::BandGeom g{img, img, 1, rows_per_band, x_chunk, n_xchunks,
                          bands_per_tile};
   const bool vec4 = n_cols == 4 && ((uintptr_t)points & 15) == 0;
-  const BevBinner bn{points, mask, n_cols, vec4, lo_x, lo_y, size_x,
-                     size_y, img, value_col, flip_rows};
+  const BevBinner bn{points, mask, n_cols, vec4, lo_x, lo_y, inv_x, inv_y,
+                     img, value_col, flip_rows};
   cudaError_t err = bins::bucket_points(bn, g, n_tiles, n_points, band_count,
                                         band_off, band_cursor, slot_rec,
                                         stream);

@@ -28,13 +28,14 @@
 // write of device memory and no separate mean pass.
 //
 // Fused in (A) and (C): the point mask, the range test against pc_range and
-// the voxel index floor((p - lo) / size) in x, y and z.  `lo` and
-// `size = (hi - lo) / [X, Y, Z]` arrive as float32 computed on the host
-// exactly as the JAX package computes them (`point_voxel_ids`), and this
-// file is compiled WITHOUT --use_fast_math, so the division is IEEE and a
-// point on a voxel border lands in the same voxel as in JAX.  The range test
-// is made on the float quotient (0 <= q < dim), which for finite q equals
-// JAX's test on floor(q) and rejects NaN.
+// the voxel index floor((p - lo) * inv) in x, y and z.  `lo` and `inv = 1 /
+// ((hi - lo) / [X, Y, Z])` arrive as float32 computed on the host as the
+// JAX package's jitted programs compute them (`point_voxel_ids`; XLA turns
+// the division by the constant voxel size into a product with its float32
+// reciprocal), and this file is compiled WITHOUT --use_fast_math, so a point
+// on a voxel border lands in the same voxel as in JAX.  The range test is
+// made on the float voxel coordinate (0 <= q < dim), which for finite q
+// equals JAX's test on floor(q) and rejects NaN.
 //
 // What bounds it: bytes.  The function must read the points (4 * C bytes
 // each) and the mask once and write the mean once (425 MB at B = 8 on the
@@ -61,7 +62,7 @@ struct VoxelBinner {
   int rec;     // floats per record: C rounded up to a power of two, or
                // 2 for (cell index, point index) where C > 8
   bool vec4;   // C == 4, 16-byte aligned: one float4 load a point
-  float lo_x, lo_y, lo_z, size_x, size_y, size_z;
+  float lo_x, lo_y, lo_z, inv_x, inv_y, inv_z;
   int gx, gy, gz;
 
   struct Point {
@@ -85,9 +86,9 @@ struct VoxelBinner {
   // row = y voxel, col = x voxel, sub = z voxel; false out of range
   __device__ __forceinline__ bool voxel(float x, float y, float z, int& row,
                                         int& col, int& sub) const {
-    const float qx = (x - lo_x) / size_x;
-    const float qy = (y - lo_y) / size_y;
-    const float qz = (z - lo_z) / size_z;
+    const float qx = (x - lo_x) * inv_x;
+    const float qy = (y - lo_y) * inv_y;
+    const float qz = (z - lo_z) * inv_z;
     if (!(qx >= 0.0f && qx < (float)gx && qy >= 0.0f && qy < (float)gy &&
           qz >= 0.0f && qz < (float)gz))
       return false;
@@ -248,8 +249,8 @@ cudaError_t bin_mean(const VoxelBinner<kIndexed>& bn,
 // takes 4 or more, so 2 floats are a (cell index, point index) record).
 extern "C" int lm_voxel_bin_mean(
     const float* points, const uint8_t* mask, int n_tiles, int n_points,
-    int n_cols, float lo_x, float lo_y, float lo_z, float size_x,
-    float size_y, float size_z, int gx, int gy, int gz, int rows_per_band,
+    int n_cols, float lo_x, float lo_y, float lo_z, float inv_x,
+    float inv_y, float inv_z, int gx, int gy, int gz, int rows_per_band,
     int x_chunk, int n_xchunks, int bands_per_tile, int smem_bytes, int rec,
     int* band_count, int* band_off, int* band_cursor, float* slot_rec,
     float* out, void* stream_ptr) {
@@ -259,12 +260,12 @@ extern "C" int lm_voxel_bin_mean(
   const bool vec4 = n_cols == 4 && ((uintptr_t)points & 15) == 0;
   if (rec == 2) {
     const VoxelBinner<true> bn{points, mask, n_cols, rec, vec4, lo_x, lo_y,
-                               lo_z, size_x, size_y, size_z, gx, gy, gz};
+                               lo_z, inv_x, inv_y, inv_z, gx, gy, gz};
     return (int)bin_mean(bn, g, n_tiles, n_points, smem_bytes, band_count,
                          band_off, band_cursor, slot_rec, out, stream);
   }
   const VoxelBinner<false> bn{points, mask, n_cols, rec, vec4, lo_x, lo_y,
-                              lo_z, size_x, size_y, size_z, gx, gy, gz};
+                              lo_z, inv_x, inv_y, inv_z, gx, gy, gz};
   return (int)bin_mean(bn, g, n_tiles, n_points, smem_bytes, band_count,
                        band_off, band_cursor, slot_rec, out, stream);
 }

@@ -33,8 +33,11 @@ _SIGNATURES = {
 def bin_geometry(pc_range: Sequence[float], img: int
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """(lo [2], size [2]) in float32, computed as the JAX package does
-    (`ops/voxelize.py:128-130` there: ``size = (hi - lo) / img`` in f32), so
-    points on a cell border bin into the same cell."""
+    (`ops/voxelize.py:128-130` there: ``size = (hi - lo) / img`` in f32).
+    The cell of x is floor((x - lo) * (1 / size)) with the reciprocal
+    rounded to float32: the JAX package's programs are jitted, and XLA
+    turns their division by this constant into that product, so points on
+    a cell border bin into the same cell."""
     lo = np.asarray(pc_range[:2], np.float32)
     hi = np.asarray(pc_range[3:5], np.float32)
     return lo, (hi - lo) / np.float32(img)
@@ -47,14 +50,15 @@ def bev_bin_sums_ref(points: torch.Tensor, mask: torch.Tensor,
     """Plain version: [B,N,C] points, [B,N] bool mask -> (sums, cnts)
     [B,img,img] float32, built on ``index_put_(accumulate=True)``.
 
-    Cell of a point: col = floor((x - lo_x) / size_x), row = the same in y,
+    Cell of a point: col = floor((x - lo_x) * (1 / size_x)) (the
+    reciprocal in float32, see ``bin_geometry``), row = the same in y,
     flipped to ``img - 1 - row`` with ``flip_rows``; points outside
     [0, img) on either axis or masked out are dropped."""
     B, N, _ = points.shape
     lo, size = bin_geometry(pc_range, img)
-    lo_t = torch.as_tensor(lo, device=points.device)
-    size_t = torch.as_tensor(size, device=points.device)
-    q = (points[..., :2] - lo_t) / size_t  # [B,N,2]
+    inv = np.float32(1.0) / size
+    q = (points[..., :2] - torch.as_tensor(lo, device=points.device)) \
+        * torch.as_tensor(inv, device=points.device)  # [B,N,2]
     valid = mask & ((q >= 0) & (q < img)).all(dim=-1)
     ij = torch.where(valid[..., None], torch.floor(q),
                      torch.zeros((), dtype=q.dtype, device=q.device)).long()
@@ -116,6 +120,7 @@ def bev_bin_mean(points: torch.Tensor, mask: torch.Tensor,
         raise ValueError("bev_bin_mean: sizes must fit in int32")
     plan = band_plan(B, N, img, img)
     lo, size = bin_geometry(pc_range, img)
+    inv = np.float32(1.0) / size
     mean = torch.empty((B, img, img), dtype=torch.float32,
                        device=points.device)
     cnt = torch.empty_like(mean)
@@ -125,7 +130,7 @@ def bev_bin_mean(points: torch.Tensor, mask: torch.Tensor,
         stream = torch.cuda.current_stream(points.device).cuda_stream
         rc = lib.lm_bev_bin_mean(
             points.data_ptr(), mask.data_ptr(), B, N, C,
-            float(lo[0]), float(lo[1]), float(size[0]), float(size[1]),
+            float(lo[0]), float(lo[1]), float(inv[0]), float(inv[1]),
             img, intensity_col, int(flip_rows), *plan.kernel_args(),
             *(scratch[k].data_ptr() for k in SCRATCH), mean.data_ptr(),
             cnt.data_ptr(), stream)

@@ -34,7 +34,10 @@ def voxel_geometry(pc_range: Sequence[float], grid: Sequence[int]
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """(lo [3], size [3]) in float32, computed as the JAX package does
     (`ops/voxelize.py:37-39` there: ``size = (hi - lo) / [X, Y, Z]`` in
-    f32), so points on a voxel border bin into the same voxel."""
+    f32).  The voxel of p is floor((p - lo) * (1 / size)) with the
+    reciprocal rounded to float32: the JAX package's programs are jitted,
+    and XLA turns their division by this constant into that product, so
+    points on a voxel border bin into the same voxel."""
     lo = np.asarray(pc_range[:3], np.float32)
     hi = np.asarray(pc_range[3:6], np.float32)
     return lo, (hi - lo) / np.asarray(grid, np.float32)
@@ -43,11 +46,11 @@ def voxel_geometry(pc_range: Sequence[float], grid: Sequence[int]
 def voxel_cells(points: torch.Tensor, pc_range: Sequence[float],
                 grid: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B,N,>=3] points -> (ijk [B,N,3] int64 clipped into the grid, valid
-    [B,N]): ijk = floor((p - lo) / size), valid where every axis lies in
-    [0, dim)."""
+    [B,N]): ijk = floor((p - lo) * (1 / size)) (``voxel_geometry``), valid
+    where every axis lies in [0, dim)."""
     lo, size = voxel_geometry(pc_range, grid)
     q = (points[..., :3] - torch.as_tensor(lo, device=points.device)) \
-        / torch.as_tensor(size, device=points.device)
+        * torch.as_tensor(np.float32(1.0) / size, device=points.device)
     dims = torch.as_tensor(np.asarray(grid, np.float32), device=points.device)
     valid = ((q >= 0) & (q < dims)).all(dim=-1)
     hi = torch.as_tensor(np.asarray(grid) - 1, device=points.device)
@@ -137,6 +140,7 @@ def voxel_bin_mean(points: torch.Tensor, mask: torch.Tensor,
         raise ValueError(f"bad grid {tuple(grid)} or sizes beyond int32")
     plan = band_plan(B, N, Y, X, Z, C, record_floats(C))
     lo, size = voxel_geometry(pc_range, (X, Y, Z))
+    inv = np.float32(1.0) / size
     out = torch.empty((B, Y, X, Z * C), dtype=torch.float32,
                       device=points.device)
     scratch = plan.scratch(points.device)
@@ -145,7 +149,7 @@ def voxel_bin_mean(points: torch.Tensor, mask: torch.Tensor,
         stream = torch.cuda.current_stream(points.device).cuda_stream
         rc = lib.lm_voxel_bin_mean(
             points.data_ptr(), mask.data_ptr(), B, N, C,
-            *(float(v) for v in lo), *(float(v) for v in size), X, Y, Z,
+            *(float(v) for v in lo), *(float(v) for v in inv), X, Y, Z,
             *plan.kernel_args(), *(scratch[k].data_ptr() for k in SCRATCH),
             out.data_ptr(), stream)
     if rc != 0:

@@ -11,10 +11,20 @@ datasets load.
 For streaming inference the PNG intermediate is not needed:
 `tools/stream_map.py --from-las` runs the same rasterization in front of
 the network.
+
+The command line takes the JAX script's arguments (`tools/las2bev.py`
+there) and ``--device`` (the card unless ``--device cpu``), and prints the
+same JSON stats without the list of written files:
+
+    python -m lanemapping_tpu_torch.tools.las2bev <las_dir> <out_dir> \
+        [--img 1152] [--pc-range X0 Y0 Z0 X1 Y1 Z1] [--gain G] [--bias B] \
+        [--fill-iters 6] [--max-points 524288] [--batch 4] [--device cuda]
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import os.path as osp
 import time
@@ -99,3 +109,38 @@ def convert_las_directory(las_dir: str, out_dir: str, img: int = 1152,
             "tiles_per_sec": round(len(written) / max(dt, 1e-9), 2),
             "points_per_sec": round(n_pts_total / max(dt, 1e-9), 0),
             "out_dir": out_dir, "written": written}
+
+
+def main(argv=None) -> Dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("las_dir")
+    ap.add_argument("out_dir", help="output PNG dir (use <root>/cropped_tiff "
+                                    "to feed the image datasets)")
+    ap.add_argument("--img", type=int, default=1152)
+    ap.add_argument("--pc-range", type=float, nargs=6,
+                    default=None, metavar=("X0", "Y0", "Z0", "X1", "Y1", "Z1"))
+    ap.add_argument("--gain", type=float, default=None)
+    ap.add_argument("--bias", type=float, default=None)
+    ap.add_argument("--fill-iters", type=int, default=None)
+    ap.add_argument("--max-points", type=int, default=1 << 19)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    p = las2bev_params()
+    if args.pc_range is not None:
+        p["pc_range"] = tuple(args.pc_range)
+    for k in ("gain", "bias", "fill_iters"):
+        if getattr(args, k) is not None:
+            p[k] = getattr(args, k)
+    stats = convert_las_directory(
+        args.las_dir, args.out_dir, img=args.img, pc_range=p["pc_range"],
+        gain=p["gain"], bias=p["bias"], fill_iters=p["fill_iters"],
+        max_points=args.max_points, batch=args.batch, device=args.device)
+    stats.pop("written")
+    print(json.dumps(stats))
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -156,22 +156,86 @@ def to_u8(proj: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a[..., :1]) if is_mono_batch(a) else a
 
 
+def prepare_serving(model: torch.nn.Module, cfg) -> torch.dtype:
+    """The dtype the stream runs ``model`` (float32, on the host) in: the
+    config's ``compute_dtype`` on the image paths; float32 on the LiDAR
+    path, whose weights this rounds to bf16 in place at a bf16 config (the
+    JAX script computes float32 there on bf16 weights,
+    `models/nets.py::round_weights_as_flax_promotes`)."""
+    from ..models.nets import round_weights_as_flax_promotes
+
+    bf16 = cfg.get("compute_dtype") == "bfloat16"
+    if not cfg.get("use_lidar", False):
+        return torch.bfloat16 if bf16 else torch.float32
+    if bf16:
+        round_weights_as_flax_promotes(model)
+    return torch.float32
+
+
+def place(model: torch.nn.Module, device: torch.device,
+          dtype: torch.dtype) -> torch.nn.Module:
+    """``model`` on ``device`` in ``dtype``, channels-last on a card."""
+    model = model.to(device=device, dtype=dtype)
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
+
+
+def network_input(kind: str, dev: Sequence[torch.Tensor], cfg,
+                  dtype: torch.dtype):
+    """The network's input from a batch's arrays on the device: ``las``
+    rasterizes (points, mask) into BEV tiles on K1
+    (`ops/voxelize.py::bev_image_from_points`), ``lidar`` passes (points,
+    mask) on, ``image`` divides uint8 tiles by 255 in float32; the tiles
+    then go to ``dtype`` and out to 3 channels."""
+    from ..ops.voxelize import bev_image_from_points
+    from .las2bev import las2bev_params
+
+    if kind == "lidar":
+        return {"points": dev[0], "points_mask": dev[1]}
+    if kind == "las":
+        p = las2bev_params(cfg)
+        x = bev_image_from_points(
+            *dev, p["pc_range"], cfg.list_img_size_xy[0], gain=p["gain"],
+            bias=p["bias"], fill_iters=p["fill_iters"])[..., None]
+    else:
+        # exact /255 in float32, then the compute dtype
+        x = dev[0].float() / 255.0
+    x = x.to(dtype)
+    return x.expand(*x.shape[:-1], 3).contiguous()
+
+
+def readback_view(out: Dict[str, torch.Tensor], cfg) -> Dict:
+    """The decode keys the host postprocess reads, as the stream ships them
+    back (on the device)."""
+    from ..decode.lane_decode import decode_lanes, host_decode_view
+
+    keep = host_decode_view(decode_lanes(out, cfg))
+    if not cfg.get("view_detail", False):
+        keep.pop("cls", None)
+        keep.pop("cls_exp", None)
+    # every host read of the conf rows is a comparison, which any monotone
+    # map preserves: ship them as uint8 (as the JAX script)
+    keep["bi_seg_rows"] = torch.round(torch.clamp(
+        keep["bi_seg_rows"], 0.0, 1.0) * 255.0).to(torch.uint8)
+    keep["prop_v_ext"] = keep["prop_v_ext"].to(torch.uint8)
+    keep["orient"] = keep["orient"].to(torch.int8)
+    return keep
+
+
 def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
     args = parse_args(argv)
     from ..api import load_checkpoint, resolve_device
     from ..config.config import Config, parse_dict_action
     from ..data.las_tiles import LasTiles
     from ..data.loader import Loader
-    from ..decode.lane_decode import decode_lanes, host_decode_view
     from ..decode.postprocess import lane_maps_from_decode
     from ..kernels.bev_bin import bev_bin_mean
     from ..kernels.voxel_bin import voxel_bin_mean
-    from ..models.nets import build_model, round_weights_as_flax_promotes
-    from ..ops.voxelize import bev_image_from_points
+    from ..models.nets import build_model
     from ..parallel.mesh import make_mesh, row_slice
     from ..registry import build_dataset
     from .export_lanes import lane_records
-    from .las2bev import las2bev_params
 
     cfg = Config.fromfile(args.config)
     if args.overrides:
@@ -199,17 +263,9 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
                         if args.seed is None else args.seed)
     if args.ckpt:
         load_checkpoint(model, args.ckpt)
-    bf16 = cfg.get("compute_dtype") == "bfloat16"
-    dtype = torch.bfloat16 if bf16 and not use_lidar else torch.float32
-    if bf16 and use_lidar:
-        round_weights_as_flax_promotes(model)
-    replicas = []
-    for dev in mesh:
-        rep = copy.deepcopy(model) if replicas else model
-        rep = rep.to(device=dev, dtype=dtype)
-        if dev.type == "cuda":
-            rep = rep.to(memory_format=torch.channels_last)
-        replicas.append((dev, rep))
+    dtype = prepare_serving(model, cfg)
+    replicas = [(dev, place(copy.deepcopy(model) if i else model, dev,
+                            dtype)) for i, dev in enumerate(mesh)]
 
     if args.from_las:
         ds = LasTiles(args.data_root, mode=args.split, cfg=cfg)
@@ -221,9 +277,6 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
                     drop_last=False, num_threads=8, prefetch=3)
     lanes_dir = os.path.join(args.out, "lanes_2d")
     os.makedirs(lanes_dir, exist_ok=True)
-    las_p = las2bev_params(cfg)
-    img = cfg.list_img_size_xy[0]
-    need_detail = bool(cfg.get("view_detail", False))
     clock = StageClock(mesh)
     voxelized = []  # the clock mark at the end of the LiDAR voxelize stage
     if kind == "lidar":
@@ -257,32 +310,14 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
         with torch.inference_mode():
             if kind == "lidar":
                 voxelized.clear()
-                out = model({"points": dev[0], "points_mask": dev[1]})
+                out = model(network_input(kind, dev, cfg, dtype))
                 t.append(voxelized[0])
             else:
-                if kind == "las":
-                    x = bev_image_from_points(
-                        *dev, las_p["pc_range"], img, gain=las_p["gain"],
-                        bias=las_p["bias"], fill_iters=las_p["fill_iters"])
-                    x = x[..., None]
-                else:
-                    # exact /255 in float32, then the compute dtype
-                    x = dev[0].float() / 255.0
-                x = x.to(dtype)
-                x = x.expand(*x.shape[:-1], 3).contiguous()
+                x = network_input(kind, dev, cfg, dtype)
                 t.append(clock.now(device))
                 out = model(x)
             t.append(clock.now(device))
-            keep = host_decode_view(decode_lanes(out, cfg))
-            if not need_detail:
-                keep.pop("cls", None)
-                keep.pop("cls_exp", None)
-            # every host read of the conf rows is a comparison, which any
-            # monotone map preserves: ship them as uint8 (as the JAX script)
-            keep["bi_seg_rows"] = torch.round(torch.clamp(
-                keep["bi_seg_rows"], 0.0, 1.0) * 255.0).to(torch.uint8)
-            keep["prop_v_ext"] = keep["prop_v_ext"].to(torch.uint8)
-            keep["orient"] = keep["orient"].to(torch.int8)
+            keep = readback_view(out, cfg)
             t.append(clock.now(device))
         if timed:
             for stage, a, b in zip(STAGES[kind], t[:-1], t[1:]):

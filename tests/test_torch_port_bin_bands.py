@@ -177,7 +177,7 @@ def test_pass_model_on_plan_matches_plain_bev_mean(flip_rows):
     mask = rng.rand(2, 5000) > 0.2
     plan = band_plan(2, 5000, img, img)
     assert plan.bands_per_tile > 1 and img % plan.rows_per_band != 0
-    q = (pts[..., :2] - lo) / size
+    q = (pts[..., :2] - lo) * (np.float32(1) / size)
     valid = mask & ((q >= 0) & (q < img)).all(-1)
     ij = np.where(valid[..., None], np.floor(q), 0).astype(np.int64)
     row = img - 1 - ij[..., 1] if flip_rows else ij[..., 1]

@@ -68,7 +68,8 @@ def test_plain_binning_matches_pallas_oracle():
     img = 128
     pts, mask = cloud(1, 5000, img)
     lo, size = bin_geometry(PC_RANGE, img)
-    ij = np.floor((pts[:, :2] - lo) / size).astype(np.int32)
+    ij = np.floor((pts[:, :2] - lo) * (np.float32(1) / size)).astype(
+        np.int32)
     valid = mask & np.all((ij >= 0) & (ij < img), axis=1)
     ij = np.clip(ij, 0, img - 1)
     want_s, want_c = jax.device_get(pallas_bin(
