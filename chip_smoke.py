@@ -225,6 +225,26 @@ or outside a checkout.  Phases, each of which fails the run:
    cells within abs 1e-5, and in bf16 each output's distance from the
    float32 golden within 1.5 times JAX's own bf16 distance + 1e-2; one
    line of largest errors and lane figures per run.
+26. the port's training on the card against the golden set's training
+   members (``--train`` of ``tests/torch_port_make_golden.py``: the JAX
+   package, its step in float64 the reference), at full width and batch
+   2: T0, the loader's first two batches of a seeded 4-tile LaserLane set
+   (2^19 points a cloud) as ``Runner._device_batch`` ships them, the
+   proposal-GT cache off, filling and serving, for both configs: the same
+   tiles in the same order, integer and uint8 keys' bytes equal, float
+   keys equal or within rel 1e-6 by their moments; T1, three float32
+   steps of the flagship (TF32 off) from the seeded mid-training Adam
+   state at lr 2.1e-4: step 0's terms within rel 1e-5 of float64, the
+   later terms, the step-0 gradient, the parameter change and the
+   BatchNorm statistics per group within 1.5 times JAX float32's distance
+   from float64 + eps; T2, the same in bf16 as the flagship ships: the
+   ratios d_port / d_jax_bf16 over the gradient's groups and over the
+   terms, each pool's median within 1.5 and 90th percentile within
+   ``POOL_Q_FACTOR``; T3, the LiDAR config's steps as shipped (float32 on
+   bf16-rounded weights, TF32 off, K1z once a step): terms and BatchNorm
+   statistics by T1's bars, the bf16-rounded gradient and the parameter
+   change by the pooled rule, the z-fold grids by P4's; one line of
+   figures per path.
 
 Phases 9, 10, 12, 13, 15, 16 and 18 run with PyTorch's default precision
 flags (TF32 convolutions on) but where they say otherwise.  Each phase
@@ -233,8 +253,9 @@ prints its wall time.  Before the last line it prints ``{"kernels":
 path, the four configs of phases 12-13, the 3-D map paths of phase 15,
 the branches of phase 16, phase 18's Base head and flag runs, K1z's per
 rank in phase 20(d), K1's over phase 21's two replicas and both on phase
-22's paths, ``launches_soak``, phase 23's, ``launches_bench``, and phase
-25's, ``launches_golden``; K1z's entry carries phase 24's figures at 12
+22's paths, ``launches_soak``, phase 23's, ``launches_bench``, phase
+25's, ``launches_golden``, and phase 26's, ``launches_golden_train``;
+K1z's entry carries phase 24's figures at 12
 columns, ``wide_cols``); the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3303,6 +3324,53 @@ def phase_golden():
     return launches
 
 
+def phase_golden_train(tmp):
+    """Phase 26: the port's training on the card held to the golden set's
+    training members (T0-T3 of ``torch_port_golden``) at full width,
+    batch 2, every bar asserted.  Returns the binning kernels' launches
+    in the phase."""
+    from lanemapping_tpu_torch.data import synthetic
+    G = golden_module()
+    meta = G.load_train_meta()
+    root = os.path.join(tmp, "golden_train")
+    t0 = time.perf_counter()
+    G.train_dataset(root, synthetic)
+    log(f"26 wrote the T0 set in {time.perf_counter() - t0:.3f} s")
+    reset_launches()
+    batches = G.run_t0("cuda", root)
+    log(f"26 T0 {json.dumps(G.hold_t0(batches, meta, '26 T0', False))}")
+    first = {name: r["host"][0] for name, r in batches.items()}
+    pin_fp32()
+    try:
+        run = G.run_train("flagship", "cuda", "float32", first["flagship"])
+        plan = G.train_plan(run, meta["paths"]["t1"])
+        fig = G.hold_float32(run, G.golden_pair("t1"), plan, "26 T1")
+        log(f"26 T1 flagship float32: {json.dumps(fig, default=float)}")
+        free_card()
+        check(read_launches() == {"bev_bin_mean": 0, "voxel_bin_mean": 0},
+              f"26: T0 and T1 launched {read_launches()}")
+        run = G.run_train("lidar", "cuda", "bfloat16", first["lidar"],
+                          grids=True)
+        fig = G.hold_float32(run, G.golden_pair("t3"), G.train_plan(
+            run, meta["paths"]["t3"]), "26 T3", pooled=True)
+        fig["grids"] = G.hold_t3_grids(run, G.load_train_golden("t3"),
+                                       "26 T3")
+        log(f"26 T3 LiDAR, K1z: {json.dumps(fig, default=float)}")
+        launches = read_launches()
+        check(launches == {"bev_bin_mean": 0,
+                           "voxel_bin_mean": G.TRAIN_STEPS},
+              f"26: T3 launched {launches} (K1z once a step)")
+        free_card()
+    finally:
+        torch_defaults()
+    run = G.run_train("flagship", "cuda", "bfloat16", first["flagship"])
+    fig = G.hold_bf16(run, G.golden_pair("t2"), plan, "26 T2")
+    log(f"26 T2 flagship bf16: {json.dumps(fig, default=float)}")
+    free_card()
+    check(read_launches() == launches, f"26: T2 launched {read_launches()}")
+    return launches
+
+
 def torch_card_name():
     import torch
     return torch.cuda.get_device_name(0)
@@ -3423,6 +3491,10 @@ def main():
         golden = phase(25, phase_golden)
         for k in (k1, k1z):
             k["launches_golden"] = golden[k["name"]]
+        free_card()
+        golden = phase(26, phase_golden_train, tmp)
+        for k in (k1, k1z):
+            k["launches_golden_train"] = golden[k["name"]]
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [k1, k1z]}), flush=True)

@@ -407,15 +407,15 @@ def _get(tree: Dict, path: str):
     return node
 
 
-def params_from_jax(params: Dict, batch_stats: Dict, rules=None
-                    ) -> Dict[str, torch.Tensor]:
+def params_from_jax(params: Dict, batch_stats: Dict, rules=None,
+                    dtype=np.float32) -> Dict[str, torch.Tensor]:
     """Flax ``params`` / ``batch_stats`` trees (nested dicts of numpy
-    arrays) -> the port's ``state_dict`` (float32 CPU tensors)."""
+    arrays) -> the port's ``state_dict`` (CPU tensors of ``dtype``)."""
     rules = rules or build_rules()
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, value):
-        sd[key] = torch.from_numpy(np.array(value, np.float32))  # a copy
+        sd[key] = torch.from_numpy(np.array(value, dtype))  # a copy
 
     for t_key, j_path, tf in rules:
         if tf == "bn":

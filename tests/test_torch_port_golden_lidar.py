@@ -153,6 +153,8 @@ def test_golden_module_imports_no_jax_and_the_set_is_small():
             "import torch_port_golden as G\n"
             "G.load_golden('p1'); G.load_meta()\n"
             "G.draw_variables(G.load_manifest('lidar'), 1)\n"
+            "G.load_train_golden('t3'); G.golden_adam('lidar')\n"
+            "G.digest_plan({'a': (3, 5), 'b': (700,)})\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
             "                                    'optax', 'lanemapping_tpu'))\n"
@@ -163,9 +165,11 @@ def test_golden_module_imports_no_jax_and_the_set_is_small():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "clean" in out.stdout
+    serving = ["flagship_variables.json", "golden.json",
+               "lidar_variables.json", *G.PATHS.values()]
+    training = [G.TRAIN_META, *G.TRAIN_PATHS.values()]
     names = sorted(os.listdir(G.GOLDEN_DIR))
-    assert names == sorted(["flagship_variables.json", "golden.json",
-                            "lidar_variables.json", *G.PATHS.values()])
-    size = sum(os.path.getsize(os.path.join(G.GOLDEN_DIR, n))
-               for n in names)
-    assert size <= 10 * 10 ** 6, size
+    assert names == sorted(serving + training)
+    size = [sum(os.path.getsize(os.path.join(G.GOLDEN_DIR, n)) for n in ns)
+            for ns in (serving, training)]
+    assert size[0] <= 10 * 10 ** 6 and size[1] <= 6 * 10 ** 6, size

@@ -3,6 +3,7 @@
 outputs at the deployment shapes, from seeded weights and inputs.
 
     JAX_PLATFORMS=cpu python tests/torch_port_make_golden.py [--search]
+    JAX_PLATFORMS=cpu python tests/torch_port_make_golden.py --train
 
 Needed again only when the JAX package, one of its ``data/synthetic.py``
 generators or the seeds of ``torch_port_golden.py`` change.  It writes the
@@ -26,8 +27,19 @@ The paths run the JAX package's own entry points, at full width:
 - P4: that program on the LiDAR config (``use_lidar``), state cast to bf16,
   and the z-fold grid of ``ops/voxelize.py::voxelize_bev_zfold``.
 
+``--train`` writes the training members instead (~20 min, ~15 GB; the
+serving members and the manifests stay as they are): T0, the first two
+batches of a seeded LaserLane set as the Runner ships them
+(``golden_train.json``); T1-T3, three steps of the flagship in float32
+and in bf16 and of the LiDAR config as it ships, from a seeded
+mid-training Adam state, each beside the JAX package in float64
+(``float64_jax``), kept as terms, per-leaf digests of the step-0 gradient
+and of the parameter change, and the BatchNorm statistics
+(``t1_flagship_f32.npz``, ``t2_flagship_bf16.npz``, ``t3_lidar.npz``).
+
 The tests (``tests/test_torch_port_golden_*.py``) call the same ``p*``
-functions to hold the stored set to what the JAX package computes now.
+and ``grads_fn`` functions to hold the stored set to what the JAX package
+computes now.
 """
 
 import argparse
@@ -37,6 +49,7 @@ import json
 import os
 import sys
 import tempfile
+import threading
 import zipfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -302,6 +315,420 @@ def p4(points, mask, screened=True):
     return rec, {"screen": screen(view, cfg, True)} if screened else {}
 
 
+
+# == training: T0-T3 (``--train``) ==========================================
+
+def _taps(shape, kernel, strides, dilation):
+    """Per kernel tap, its index and the slices of a VALID convolution's
+    input it meets (channels-last, ``shape`` the input's)."""
+    import itertools
+    n = len(kernel)
+    out = [(shape[1 + i] - (kernel[i] - 1) * dilation[i] - 1) // strides[i]
+           + 1 for i in range(n)]
+    for tap in itertools.product(*[range(k) for k in kernel]):
+        yield tap, (slice(None),) + tuple(
+            slice(t * d, t * d + (o - 1) * s + 1, s)
+            for t, d, o, s in zip(tap, dilation, out, strides)), out
+
+
+# XLA runs independent callbacks on several threads at once, and numpy's
+# BLAS gives wrong products when called from several threads at once (the
+# float64 flagship step came out different on every run, up to 3e-3 on a
+# term): one callback at a time
+_BLAS = threading.Lock()
+
+
+def _conv_np(x, w, strides, dilation):
+    """VALID float64 convolution, channels-last: a float64 matrix product
+    per kernel tap (numpy's BLAS)."""
+    out = None
+    with _BLAS:
+        for tap, sl, _ in _taps(x.shape, w.shape[:-2], strides, dilation):
+            y = np.tensordot(x[sl], w[tap], axes=([x.ndim - 1], [0]))
+            out = y if out is None else out + y
+    return out
+
+
+def _conv_np_vjp(x, w, dy, strides, dilation):
+    dx, dw = np.zeros_like(x), np.zeros_like(w)
+    g = dy.reshape(-1, dy.shape[-1])
+    with _BLAS:
+        for tap, sl, _ in _taps(x.shape, w.shape[:-2], strides, dilation):
+            dw[tap] = x[sl].reshape(-1, x.shape[-1]).T @ g
+            dx[sl] += (g @ w[tap].T).reshape(x[sl].shape)
+    return dx, dw
+
+
+def tap_conv(lhs, rhs, window_strides, padding, lhs_dilation=None,
+             rhs_dilation=None, dimension_numbers=None,
+             feature_group_count=1, batch_group_count=1, precision=None,
+             preferred_element_type=None):
+    """``lax.conv_general_dilated`` of float64 operands, computed on the
+    host as a sum over the kernel's taps of float64 matrix products (XLA's
+    CPU backend has no fast float64 convolution: a 3x3 64-channel layer
+    at 144^2 takes 40x its float32 time, a flagship step in float64 over
+    30 min; and a sum of taps inside XLA keeps ~78 GB of temporaries at
+    full width); padding and input dilation stay in XLA.  Other operands
+    go to the original.  Held to the original in float64, value and
+    gradient, by `tests/test_torch_port_golden_train.py`."""
+    if lhs.dtype != jnp.float64 or feature_group_count != 1 \
+            or batch_group_count != 1:
+        return _LAX_CONV(lhs, rhs, window_strides, padding, lhs_dilation,
+                         rhs_dilation, dimension_numbers, feature_group_count,
+                         batch_group_count, precision, preferred_element_type)
+    from jax import lax
+    n = lhs.ndim - 2
+    dn = lax.conv_dimension_numbers(lhs.shape, rhs.shape, dimension_numbers)
+    x = jnp.transpose(lhs, (dn.lhs_spec[0], *dn.lhs_spec[2:], dn.lhs_spec[1]))
+    w = jnp.transpose(rhs, (*dn.rhs_spec[2:], dn.rhs_spec[1], dn.rhs_spec[0]))
+    w = w.astype(jnp.float64)
+    strides = tuple(window_strides)
+    dilation = tuple(rhs_dilation or (1,) * n)
+    lhs_dilation = tuple(lhs_dilation or (1,) * n)
+    if any(d > 1 for d in lhs_dilation):
+        x = lax.pad(x, jnp.zeros((), x.dtype), [(0, 0, 0)] + [
+            (0, 0, d - 1) for d in lhs_dilation] + [(0, 0, 0)])
+    kernel = w.shape[:n]
+    if isinstance(padding, str):
+        padding = lax.padtype_to_pads(
+            x.shape[1:-1], [(k - 1) * d + 1 for k, d in zip(kernel,
+                                                           dilation)],
+            strides, padding)
+    x = lax.pad(x, jnp.zeros((), x.dtype), [(0, 0, 0)] + [
+        (lo, hi, 0) for lo, hi in padding] + [(0, 0, 0)])
+    out_sz = next(_taps(x.shape, kernel, strides, dilation))[2]
+    out_t = jax.ShapeDtypeStruct((x.shape[0], *out_sz, w.shape[-1]),
+                                 jnp.float64)
+
+    @jax.custom_vjp
+    def conv(x, w):
+        return jax.pure_callback(
+            lambda a, b: _conv_np(np.asarray(a), np.asarray(b), strides,
+                                  dilation), out_t, x, w)
+
+    def fwd(x, w):
+        return conv(x, w), (x, w)
+
+    def bwd(res, dy):
+        x, w = res
+        return jax.pure_callback(
+            lambda a, b, g: _conv_np_vjp(np.asarray(a), np.asarray(b),
+                                         np.asarray(g), strides, dilation),
+            (jax.ShapeDtypeStruct(x.shape, x.dtype),
+             jax.ShapeDtypeStruct(w.shape, w.dtype)), x, w, dy)
+
+    conv.defvjp(fwd, bwd)
+    out = conv(x, w)
+    inv = [0] * (n + 2)
+    for i, d in enumerate((dn.out_spec[0], *dn.out_spec[2:],
+                           dn.out_spec[1])):
+        inv[d] = i
+    return jnp.transpose(out, inv)
+
+
+_LAX_CONV = jax.lax.conv_general_dilated
+
+
+@contextlib.contextmanager
+def float64_jax():
+    """The JAX package in float64: x64 enabled, float64 convolutions
+    by ``tap_conv``, and the float32 that its losses
+    (`models/head_losses.py`, `ops/losses.py`) and its attention
+    (`models/transformer.py`) cast to read as float64 (their module's
+    ``jnp`` seen through a proxy), so nothing of the step rounds to
+    float32 but its inputs: the tile's /255, the points and the z-fold
+    grid, the interpolation operators' float32 weights."""
+    import pytest
+    import lanemapping_tpu.models.head_losses as hl
+    import lanemapping_tpu.models.transformer as tr
+    import lanemapping_tpu.ops.losses as ol
+
+    class Wide:
+        float32 = jnp.float64
+
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+    # x64 for every thread: ``tap_conv``'s host callbacks run on XLA's
+    # threads, where ``jax.enable_x64``'s thread-local setting would not
+    # reach and their float64 operands would arrive as float32
+    was = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            for mod in (hl, ol, tr):
+                mp.setattr(mod, "jnp", Wide())
+            mp.setattr(jax.lax, "conv_general_dilated", tap_conv)
+            yield
+    finally:
+        jax.config.update("jax_enable_x64", was)
+
+
+def train_config(name, root, **top):
+    """The JAX config of ``name`` at ``G.TRAIN_BATCH`` on ``root``."""
+    return G.wire_train(jax_config(name), root, **top)
+
+
+def t0(root):
+    """T0: the first two batches of the loader of each config on ``root``,
+    shipped by the Runner's ``_device_batch``, with the GT cache off, on
+    while it fills and on when it serves.  (info, {config: [batches]})."""
+    from lanemapping_tpu.data.loader import build_dataloader
+    from torch_port_helpers import jax_device_batch
+    info, batches = {}, {}
+    for name in G.CONFIGS:
+        runs = []
+        for cache in (False, True, True):
+            cfg = train_config(name, root, gt_cache=cache)
+            runs.append([(b["image_name"], jax_device_batch(cfg, b))
+                         for b in build_dataloader(cfg.dataset.train, cfg)])
+        recs = [[(n, G.batch_record(db)) for n, db in run] for run in runs]
+        G.require(recs[0] == recs[1] == recs[2] and len(recs[0]) == 2,
+                  f"T0 {name}: the GT cache changed the batches")
+        info[name] = {"names": [n for n, _ in recs[0]],
+                      "batches": [r for _, r in recs[0]]}
+        batches[name] = [db for _, db in runs[0]]
+    return info, batches
+
+
+def grads_fn(model, cfg, cast, grad=True):
+    """Jitted (params, batch_stats, batch) -> (terms with ``loss``, grads,
+    new batch stats) of the differentiated function of
+    `engine/state.py:84-99` with the parameter cast ``cast``; without
+    ``grad``, -> the terms alone (the forward and the loss)."""
+    from lanemapping_tpu.engine.state import model_input
+    from lanemapping_tpu.models.head_losses import (column_proposal_loss,
+                                                    head_hparams)
+    hp = head_hparams(cfg)
+    lidar = bool(cfg.get("use_lidar", False))
+    cdt = jnp.bfloat16 if cast == "bf16" else None
+    key = (model, cast, lidar, tuple(sorted(hp.items())),
+           jax.config.jax_enable_x64, grad)
+    try:  # one compile for equal nets (the tests' seeds)
+        if key in _GRADS:
+            return _GRADS[key]
+    except TypeError:  # a net with unhashable fields
+        key = None
+
+    def inner(params, batch_stats, batch):
+        params = jax.tree.map(CASTS[cast], params)
+        out, upd = model.apply({"params": params, "batch_stats": batch_stats},
+                               model_input(batch, lidar, cdt), train=True,
+                               mutable=["batch_stats"])
+        res = column_proposal_loss(out, batch, hp)
+        return res["loss"], ({**res["loss_stats"], "loss": res["loss"]},
+                             upd["batch_stats"])
+
+    @jax.jit
+    def run(params, batch_stats, batch):
+        if not grad:
+            return inner(params, batch_stats, batch)[1][0]
+        (_, (terms, bs)), g = jax.value_and_grad(inner, has_aux=True)(
+            params, batch_stats, batch)
+        return terms, g, bs
+    if key is not None:
+        _GRADS[key] = run
+    return run
+
+
+_GRADS = {}
+
+
+# the parameter casts: none; the flagship's bf16 (`engine/state.py:85-88`);
+# the LiDAR step's bf16 rounding in float64 (flax promotes the bf16 weights
+# against the float32 grid, so in float64 the rounded weights widen again)
+CASTS = {"none": lambda x: x,
+         "bf16": lambda x: x.astype(jnp.bfloat16)
+         if x.dtype == jnp.float32 else x,
+         "bf16_round": lambda x: x.astype(jnp.bfloat16).astype(x.dtype)}
+
+
+def reference_step(model, cfg, tx, cast):
+    """A jitted copy of `engine/state.py::make_train_step`'s step with the
+    cast ``cast`` that also returns the gradient (the float64 runs: the
+    JAX step casts only float32 parameters).  (state, batch) -> (state,
+    terms, grads)."""
+    import optax
+    run = grads_fn(model, cfg, cast)
+
+    @jax.jit
+    def step(state, batch):
+        terms, g, bs = run(state.params, state.batch_stats, batch)
+        upd, opt = tx.update(g, state.opt_state, state.params)
+        return state.replace(params=optax.apply_updates(state.params, upd),
+                             batch_stats=bs, opt_state=opt,
+                             step=state.step + 1), terms, g
+    return step
+
+
+def torch_layout(params, batch_stats, cfg):
+    """Flax trees -> {torch name: float64 numpy} by the port's rules."""
+    from lanemapping_tpu_torch.tools.from_jax import params_from_jax, rules_for
+    sd = params_from_jax(jax.device_get(params), jax.device_get(batch_stats),
+                         rules_for(cfg), dtype=np.float64)
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def to_f64(tree):
+    return jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float64)),
+                        tree)
+
+
+def train_run(name, cfg, variables, batch, adam, mode, steps=None):
+    """Step 0's terms and gradient, then ``G.TRAIN_STEPS`` steps from the
+    Adam state ``adam``: mode ``f64`` (`reference_step` under
+    `float64_jax`), ``f32`` or ``bf16`` (the gradient from `grads_fn`, the
+    steps from the JAX package's ``make_train_step``).  {terms [steps,
+    terms], grads, params before and after, batch_stats after} (torch
+    layout, float64)."""
+    import lanemapping_tpu as lm
+    from torch_port_helpers import (jax_train_state, jax_train_step,
+                                    with_adam_state)
+    lidar = name == "lidar"
+    model = lm.build_model(cfg)
+    mu, nu, count = adam
+    ctx = float64_jax() if mode == "f64" else contextlib.nullcontext()
+    with ctx:
+        tx, state = jax_train_state(cfg, variables)
+        if mode == "f64":
+            state = state.replace(params=to_f64(state.params),
+                                  batch_stats=to_f64(state.batch_stats))
+            opt = tx.init(state.params)
+            state = state.replace(opt_state=with_adam_state(
+                opt, to_f64(mu), to_f64(nu), count))
+            step = reference_step(model, cfg, tx,
+                                  "bf16_round" if lidar else "none")
+        else:
+            state = state.replace(opt_state=with_adam_state(
+                state.opt_state, mu, nu, count))
+            cast = "bf16" if mode == "bf16" else "none"
+            grads = grads_fn(model, cfg, cast)
+            cfg.train_compute_dtype = "bfloat16" if cast == "bf16" \
+                else "float32"
+            jstep = jax_train_step(model, tx, cfg)
+        before = torch_layout(state.params, state.batch_stats, cfg)
+        terms, g0 = [], None
+        for i in range(steps or G.TRAIN_STEPS):
+            if mode == "f64":
+                state, t, g = step(state, batch)
+            else:
+                if i == 0:
+                    _, g, _ = grads(state.params, state.batch_stats, batch)
+                state, t = jstep(state, batch, jax.random.PRNGKey(0))
+            if i == 0:
+                g0 = torch_layout(g, {}, cfg)
+            t = {k: float(v) for k, v in jax.device_get(t).items()}
+            G.require(all(np.isfinite(list(t.values()))), f"{mode}: {t}")
+            terms.append(G.term_vector(t))
+            print(f"  {name} {mode} step {i}: loss {t['loss']!r}", flush=True)
+        after = torch_layout(state.params, state.batch_stats, cfg)
+    return {"terms": np.stack(terms), "grads": g0, "before": before,
+            "after": after}
+
+
+def adam_for(name, cfg, variables, batch, mode):
+    """The manifest record and the trees of the seeded mid-training Adam
+    state of ``name``: its per-leaf RMS from the gradient of the step as
+    it ships (``mode``), its moments by `G.draw_adam` (held bit for bit to
+    `mid_training_adam` here)."""
+    from torch_port_helpers import mid_training_adam
+    _, g, _ = grads_fn(__import__("lanemapping_tpu").build_model(cfg), cfg,
+                       mode)(variables["params"], variables["batch_stats"],
+                             batch)
+    g = jax.tree.map(lambda a: np.asarray(a, np.float32), jax.device_get(g))
+    leaves = G.flat_leaves(g)
+    rec = {"seed": G.TRAIN_SEEDS["adam"], "count": G.ADAM_COUNT,
+           "leaves": [[list(p), list(a.shape)] for p, a in leaves],
+           "rms": G.grad_rms(g)}
+    adam = G.golden_adam(name, {"adam": {name: rec}})
+    want = mid_training_adam(g, rec["seed"], rec["count"])
+    for a, b in zip(jax.tree.leaves(adam[:2]), jax.tree.leaves(want[:2])):
+        G.require(a.dtype == b.dtype and np.array_equal(a, b),
+                  "draw_adam is not mid_training_adam")
+    return rec, adam
+
+
+def digests(plan, prefix, run, ref):
+    """The members of one run: its terms, the digests of its step-0
+    gradient and of its parameter change, the exact per-leaf distances of
+    both from the reference run ``ref`` (None: ``run`` is the reference),
+    its BatchNorm statistics after the steps."""
+    change = {k: run["after"][k] - run["before"][k] for k in run["grads"]}
+    rec = {f"terms_{prefix}": run["terms"],
+           f"bn_{prefix}": G.bn_vector(run["after"])}
+    rec.update(G.pack_digest("g" + prefix, G.vector_digest(plan,
+                                                           run["grads"])))
+    rec.update(G.pack_digest("d" + prefix, G.vector_digest(plan, change)))
+    if ref is not None:
+        ref_change = {k: ref["after"][k] - ref["before"][k]
+                      for k in ref["grads"]}
+        for key, got, want in (("g", run["grads"], ref["grads"]),
+                               ("d", change, ref_change)):
+            rec[f"dist_{key}{prefix}"] = np.array(
+                [np.linalg.norm(got[p["name"]] - want[p["name"]])
+                 for p in plan])
+    return rec
+
+
+def lidar_grids(cfg, batch):
+    """T3's z-fold grids of the batch, one `G.voxel_record` a tile."""
+    from lanemapping_tpu.ops.voxelize import voxelize_bev_zfold
+    f = jax.jit(lambda a, m: voxelize_bev_zfold(
+        a, m, cfg.lidar_point_cloud_range, cfg.grid_size))
+    rec = {}
+    for b in range(len(batch["points"])):
+        grid = np.asarray(f(batch["points"][b], batch["points_mask"][b]))
+        for k, v in G.voxel_record(grid, n_sample=G.TRAIN_VOXEL_SAMPLE
+                                   ).items():
+            rec[f"{k}_{b}"] = v
+    return rec
+
+
+def train_main():
+    """Write T1-T3 and ``golden_train.json`` (T0's digests)."""
+    from lanemapping_tpu.data import synthetic
+    meta = {"batch": G.TRAIN_BATCH, "tiles": G.TRAIN_TILES,
+            "points": G.TRAIN_POINTS, "steps": G.TRAIN_STEPS,
+            "seeds": G.TRAIN_SEEDS, "weight_seeds": G.WEIGHT_SEEDS,
+            "sub_per_leaf": G.SUB_PER_LEAF, "sketch_dim": G.SKETCH_DIM,
+            "terms": list(G.TERMS), "seed_notes": G.TRAIN_SEED_NOTES,
+            "adam": {}, "paths": {}}
+    with tempfile.TemporaryDirectory() as root:
+        G.train_dataset(root, synthetic)
+        meta["t0"], batches = t0(root)
+    print("t0", json.dumps(meta["t0"]["flagship"]["names"]), flush=True)
+    for name, paths in (("flagship", ("t1", "t2")), ("lidar", ("t3",))):
+        batch = batches[name][0]
+        variables = G.draw_variables(G.load_manifest(name),
+                                     G.WEIGHT_SEEDS[name])
+        shipped = "bf16" if name == "lidar" else "none"
+        cfg = lambda: train_config(name, "")  # noqa: E731
+        meta["adam"][name], adam = adam_for(name, cfg(), variables, batch,
+                                            shipped)
+        ref = train_run(name, cfg(), variables, batch, adam, "f64")
+        plan = G.digest_plan({k: v.shape for k, v in ref["grads"].items()})
+        rec = digests(plan, "ref", ref, None)
+        jax_mode = "bf16" if name == "lidar" else "f32"
+        recs = {paths[0]: {**rec, **digests(plan, "jax", train_run(
+            name, cfg(), variables, batch, adam, jax_mode), ref)}}
+        if name == "lidar":
+            recs["t3"].update(lidar_grids(cfg(), batch))
+        else:
+            recs["t2"] = digests(plan, "jax", train_run(
+                name, cfg(), variables, batch, adam, "bf16"), ref)
+        for path, r in recs.items():
+            out = os.path.join(G.GOLDEN_DIR, G.TRAIN_PATHS[path])
+            save_npz(out, r)
+            meta["paths"][path] = {
+                "config": name, "jax_mode": "bf16" if path == "t2"
+                else jax_mode, "bytes": os.path.getsize(out),
+                "leaves": [[p["name"], p["n"]] for p in plan],
+                "terms_ref": ref["terms"].tolist(),
+                "terms_jax": r["terms_jax"].tolist()}
+            print(path, meta["paths"][path]["bytes"], flush=True)
+    with open(os.path.join(G.GOLDEN_DIR, G.TRAIN_META), "w") as f:
+        json.dump(meta, f, indent=1)
+
 def save_npz(path, arrays):
     """``np.savez`` with LZMA members (``np.load`` reads them; 10% smaller
     than ``savez_compressed`` on these float maps) and a fixed member date,
@@ -375,8 +802,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--search", action="store_true",
                     help="print input seeds that clear the margin first")
+    ap.add_argument("--train", action="store_true",
+                    help="write the training members (T0-T3) instead")
     args = ap.parse_args(argv)
     os.makedirs(G.GOLDEN_DIR, exist_ok=True)
+    if args.train:
+        train_main()
+        return
     for name in G.CONFIGS:
         with open(os.path.join(G.GOLDEN_DIR, f"{name}_variables.json"),
                   "w") as f:
