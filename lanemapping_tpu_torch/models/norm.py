@@ -32,6 +32,15 @@ refuse a batch that does not divide).  Under ``frozen_batch_stats`` the
 collectives still run (a recompute runs them in the backward pass, in the
 same order on every rank).  At a world of one nothing of this runs.
 
+In training on the CPU the layers do not call PyTorch's batch norm, nor
+its group norm (``GroupNorm``): for a channels-last input (the port's NHWC
+activations) or an [N, C] one those kernels keep one float32 running sum
+per thread, so their figures move with the intra-op thread count (and the
+process's history): their output sits 1e-4 from float64 at one thread
+on the LiDAR stem's [2, 32, 576, 576] (`tests/test_torch_port_cpu_norms.py`).
+``_CpuNorm`` normalises with the statistics of `torch.var_mean` and sums
+its backward pass in float64; the card keeps PyTorch's kernels.
+
 ``Dropout`` draws its mask from ``generator`` when one is set (the Runner
 sets the train state's generator, seeded from ``cfg.seed``), else from
 torch's default generator.  In a group of more than one rank it draws the
@@ -87,6 +96,83 @@ class _SyncBatchNorm(torch.autograd.Function):
         return dx, dw, db, None
 
 
+ROWS = 64   # positions a float32 partial sum of `channel_sums` covers
+
+
+def channel_sums(t: torch.Tensor, per_sample: bool) -> torch.Tensor:
+    """float64 sums of ``t`` [N, C, ...] per channel over the batch and the
+    positions ([1, C]), or per sample and channel over the positions ([N,
+    C]): float32 sums of ``ROWS`` positions at a time (each one thread's,
+    so the same bits at any thread count), added in float64; cheaper than
+    a float64 reduction of ``t``, which converts every element.  A view
+    of a channels-last or [N, C] ``t``, a copy of another."""
+    n, c = t.shape[:2]
+    rows = t.movedim(1, -1).reshape(n if per_sample else 1, -1, c)
+    k = rows.shape[1] - rows.shape[1] % ROWS
+    part = rows[:, :k].reshape(rows.shape[0], -1, ROWS, c).sum(2)
+    return (part.sum(1, dtype=torch.float64)
+            + rows[:, k:].sum(1, dtype=torch.float64))
+
+
+class _CpuNorm(torch.autograd.Function):
+    """Normalisation of ``x`` [N, C, ...] on the CPU with the statistics of
+    `torch.var_mean`: per channel over the batch (BatchNorm in training,
+    ``groups`` None) or per sample and group (GroupNorm) -> (y, mean,
+    biased var), the statistics flat.  The backward pass takes its sums
+    from `channel_sums`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, groups):
+        n, c = x.shape[:2]
+        if groups is None:
+            v, dims = x, [0] + list(range(2, x.dim()))
+        else:
+            v = x.view(n, groups, -1, *x.shape[2:])
+            dims = list(range(2, v.dim()))
+        var, mean = torch.var_mean(v, dim=dims, correction=0, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+        xhat = (v - mean).mul_(rstd).view(x.shape)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        y = torch.addcmul(bias.view(shape), xhat, weight.view(shape))
+        ctx.save_for_backward(xhat, weight, rstd)
+        ctx.groups = groups
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean.flatten(), var.flatten()
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, rstd = ctx.saved_tensors
+        n, c = dy.shape[:2]
+        groups = ctx.groups
+        per_sample = groups is not None
+        s_dy = channel_sums(dy, per_sample)
+        s_dyx = channel_sums(dy * xhat, per_sample)
+        dw, db = s_dyx.sum(0).to(dy.dtype), s_dy.sum(0).to(dy.dtype)
+        # the means of g = dy * weight and of g * xhat over each set the
+        # statistics came from, and its rstd, per (sample or 1, channel)
+        w64 = weight.double()
+        if per_sample:
+            size = c // groups * xhat[0, 0].numel()
+
+            def per_set(s):
+                return (s * w64).view(n, groups, -1).sum(2, keepdim=True) \
+                    .expand(n, groups, c // groups).reshape(n, c) / size
+            k = rstd.view(n, groups, 1).expand(n, groups, c // groups) \
+                .reshape(n, c).double()
+        else:
+            size = dy.numel() // c
+
+            def per_set(s):
+                return s * w64 / size
+            k = rstd.view(1, c).double()
+        shape = [-1, c] + [1] * (dy.dim() - 2)
+        dx = torch.addcmul((-k * per_set(s_dy)).to(dy.dtype).view(shape),
+                           xhat, (-k * per_set(s_dyx)).to(dy.dtype)
+                           .view(shape))
+        dx.addcmul_(dy, (k * w64).to(dy.dtype).view(shape))
+        return dx, dw, db, None, None
+
+
 class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
     frozen_stats = False
 
@@ -98,22 +184,32 @@ class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
             y, mean, var = _SyncBatchNorm.apply(
                 x32, self.weight.to(x32.dtype), self.bias.to(x32.dtype),
                 self.eps)
-            if not self.frozen_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                    self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self._move_stats(mean, var)
+            return y.to(x.dtype)
+        if x.device.type == "cpu":
+            # Departure from F.batch_norm (PyTorch's CPU kernel, not JAX's
+            # arithmetic; module docstring): the batch statistics are
+            # `torch.var_mean`'s, those the running statistics move toward
+            y, mean, var = _CpuNorm.apply(
+                x32, self.weight.to(x32.dtype), self.bias.to(x32.dtype),
+                self.eps, None)
+            self._move_stats(mean, var)
             return y.to(x.dtype)
         dims = [0] + list(range(2, x.dim()))
         if not self.frozen_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x32, dim=dims, correction=0)
-                m = self.momentum
-                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self._move_stats(mean, var)
         y = F.batch_norm(x32, None, None, self.weight.to(x32.dtype),
                          self.bias.to(x32.dtype), training=True, eps=self.eps)
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _move_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if not self.frozen_stats:
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
 
 
 class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
@@ -122,6 +218,24 @@ class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
     pass
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm``; in training on the CPU through ``_CpuNorm`` (the
+    module docstring: PyTorch's channels-last CPU kernel put the
+    flagship's float32 step-0 ``semantic_seg_loss`` 5.6e-6 from float64
+    at one thread).  In evaluation the CPU keeps PyTorch's kernel, as the
+    card does: through ``_CpuNorm`` one FPN Seg pixel of
+    `tests/test_torch_port_zoo_runner.py` changes class at a near-tie of
+    two logits, where the test holds every class to the JAX package's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cpu" or not self.training or not self.affine:
+            return super().forward(x)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        return _CpuNorm.apply(x32, self.weight.to(x32.dtype),
+                              self.bias.to(x32.dtype), self.eps,
+                              self.num_groups)[0].to(x.dtype)
 
 
 @contextlib.contextmanager

@@ -39,7 +39,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.interp import resize_bilinear_ac
 from ..registry import PCENCODER
-from .norm import BatchNorm2d, frozen_batch_stats
+from .norm import BatchNorm2d, GroupNorm, frozen_batch_stats
 
 BN_MOMENTUM = 0.1  # flax momentum 0.9
 BN_EPS = 1e-5
@@ -261,16 +261,14 @@ class FPNEncoder(nn.Module):
         self.semantic_branch2 = conv3x3(width, half)
         self.conv2 = conv3x3(width, width)
         self.conv3 = conv3x3(width, width)
-        self.gn11, self.gn12 = nn.GroupNorm(half, half), nn.GroupNorm(width,
-                                                                      width)
-        self.gn21, self.gn22 = nn.GroupNorm(half, half), nn.GroupNorm(width,
-                                                                      width)
+        self.gn11, self.gn12 = GroupNorm(half, half), GroupNorm(width, width)
+        self.gn21, self.gn22 = GroupNorm(half, half), GroupNorm(width, width)
         self.feature_layer = conv1x1(half, fea_up_channels)
         self.output_layer_binary_seg = conv1x1(fea_up_channels, seg_classes)
         self.endp_head_extra = endp_head_extra
         if endp_head_extra:
             self.endp_extra = conv3x3(half, half)
-            self.gn_endp_extra = nn.GroupNorm(half, half)
+            self.gn_endp_extra = GroupNorm(half, half)
         self.output_layer_endp = conv1x1(half, 1)
 
     def forward(self, x):

@@ -23,7 +23,7 @@ import numpy as np
 
 import torch_port_golden as G
 import torch_port_make_golden as M
-from torch_port_helpers import random_variables
+from torch_port_helpers import golden_threads, random_variables  # noqa: F401
 
 
 def test_draw_variables_equals_random_variables_flagship():
@@ -67,14 +67,14 @@ def test_golden_p2_is_what_jax_computes_now():
     G.check_regen(G.regen_errors(rec, G.load_golden("p2")), "P2")
 
 
-def test_port_p1_meets_the_golden_bars():
+def test_port_p1_meets_the_golden_bars(golden_threads):
     run = G.run_p1("cpu")
     fig = G.hold_p1(run, G.load_golden("p1"), "P1 on the CPU")
     assert fig["lanes"]["lanes"] == fig["lanes"]["lanes_golden"]
     assert min(fig["lanes"]["lanes"]) > 0
 
 
-def test_port_p2_bf16_meets_the_bf16_rule():
+def test_port_p2_bf16_meets_the_bf16_rule(golden_threads):
     run = G.run_p2("cpu")
     assert run["dtype"] == "torch.bfloat16"
     fig = G.hold_p2(run, G.load_golden("p2"), G.load_golden("p1"),

@@ -31,7 +31,8 @@ import torch
 
 import torch_port_golden as G
 import torch_port_make_golden as M
-from torch_port_helpers import REPO, lidar_example, random_variables
+from torch_port_helpers import (REPO, golden_threads,  # noqa: F401
+                                lidar_example, random_variables)
 
 PC_RANGE = (-15.0, -25.0, -2.0, 15.0, 25.0, 2.0)
 
@@ -79,13 +80,13 @@ def test_golden_p4_is_what_jax_computes_now():
         assert margin > M.MARGIN and unstable == 0
 
 
-def test_port_p3_meets_the_golden_bars():
+def test_port_p3_meets_the_golden_bars(golden_threads):
     run = G.run_p3("cpu")
     fig = G.hold_p3(run, G.load_golden("p3"), "P3 on the CPU")
     assert fig["lanes"]["lanes"] == fig["lanes"]["lanes_golden"]
 
 
-def test_port_p4_meets_the_golden_bars():
+def test_port_p4_meets_the_golden_bars(golden_threads):
     run = G.run_p4("cpu")
     assert run["grid"].shape == (576, 576, 40)
     fig = G.hold_p4(run, G.load_golden("p4"), "P4 on the CPU")

@@ -27,7 +27,8 @@ def t0(tmp_path_factory):
     from lanemapping_tpu_torch.data import synthetic
     root = str(tmp_path_factory.mktemp("laserlane"))
     G.train_dataset(root, synthetic)
-    return root, G.run_t0("cpu", root)
+    with G.threads(G.HOLD_THREADS):
+        return root, G.run_t0("cpu", root)
 
 
 def test_port_t0_meets_the_golden_batches(t0):

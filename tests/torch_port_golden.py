@@ -35,6 +35,8 @@ functions hold what they return to the golden set, raising
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -94,6 +96,45 @@ SUBSAMPLE = {
 }
 VOXEL_SAMPLE = 65536
 VOXEL_SAMPLE_SEED = 25
+
+
+# a golden hold's intra-op threads: since the CPU norms' repair its
+# figures do not depend on the count (ROADMAP Queue 3 item 10), and under
+# the suite's parallel workers a thread per core slows the full-width holds
+# several times over (the bf16 tests run at two for the same reason)
+HOLD_THREADS = 2
+
+
+@contextlib.contextmanager
+def threads(n: int):
+    """torch's intra-op thread count at ``n`` within the block, restored
+    after it."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield n
+    finally:
+        torch.set_num_threads(before)
+
+
+def names_threads(hold):
+    """``hold`` with the intra-op thread count and the CPU's vector
+    capability in the message of a failed bar: PyTorch's CPU figures can
+    depend on both."""
+    @functools.wraps(hold)
+    def run(*args, **kwargs):
+        try:
+            return hold(*args, **kwargs)
+        except AssertionError as e:
+            if "[torch threads" in str(e):   # a hold inside a hold
+                raise
+            import torch
+            raise AssertionError(
+                f"{e} [torch threads {torch.get_num_threads()}, cpu "
+                f"capability {torch.backends.cpu.get_cpu_capability()}]"
+            ) from e
+    return run
 
 
 def require(cond, msg):
@@ -707,6 +748,7 @@ def run_p4(device) -> Dict:
 
 # -- the bars, per path -----------------------------------------------------
 
+@names_threads
 def hold_p1(run: Dict, golden, what: str) -> Dict:
     """P1's (and P3's, P4's) float32 bars: head outputs and lanes."""
     err = head_errors(run["heads"], golden, run["rows"])
@@ -716,6 +758,7 @@ def hold_p1(run: Dict, golden, what: str) -> Dict:
     return {"heads": err, "lanes": fig}
 
 
+@names_threads
 def hold_p2(run: Dict, golden_bf16, golden_f32, what: str) -> Dict:
     """P2's bf16 rule on every output; lanes only counted."""
     rows = run["rows"]
@@ -728,6 +771,7 @@ def hold_p2(run: Dict, golden_bf16, golden_f32, what: str) -> Dict:
             "lanes_jax_bf16": golden_bf16["lane_counts"][rows].tolist()}
 
 
+@names_threads
 def hold_p3(run: Dict, golden, what: str) -> Dict:
     fig = hold_p1(run, golden, what)
     bev_abs = float(np.abs(run["bev"] - golden["bev"]).max())
@@ -739,6 +783,7 @@ def hold_p3(run: Dict, golden, what: str) -> Dict:
     return fig
 
 
+@names_threads
 def hold_p4(run: Dict, golden, what: str) -> Dict:
     fig = hold_p1(run, golden, what)
     fig["voxels"] = voxel_errors(run["grid"], golden)
@@ -1071,6 +1116,14 @@ def port_train_config(name: str, root: str, **top):
     return wire_train(port_config(name), root, **top)
 
 
+def first_train_batch(name: str, root: str) -> Dict:
+    """The port loader's first batch of ``name`` on the T0 set at
+    ``root``."""
+    from lanemapping_tpu_torch.data.loader import build_dataloader
+    cfg = port_train_config(name, root)
+    return next(iter(build_dataloader(cfg.dataset.train, cfg)))
+
+
 def host_batch(db) -> Dict[str, np.ndarray]:
     """A device batch as numpy (bf16 widened exactly to float32)."""
     import torch
@@ -1108,6 +1161,7 @@ def run_t0(device, root: str) -> Dict:
     return out
 
 
+@names_threads
 def hold_t0(run: Dict, meta: Dict, what: str, exact_floats: bool) -> Dict:
     """T0's bars: tile order equal; integer keys exact; float keys exact
     (``exact_floats``) or within ``BATCH_MOMENT_REL`` by their moments;
@@ -1283,6 +1337,29 @@ def vector_ratios(plan, vec, golden, key: str = "g") -> List[float]:
         np.maximum(d["jax"][g], floor_rel * np.sqrt(norms[g])), 1e-300)]
 
 
+def float32_figures(run: Dict, golden, plan, pooled: bool = False) -> Dict:
+    """The figures of `hold_float32`'s bars, none held."""
+    t = term_figures(run, golden)
+    rel0 = t["port"][0] / np.maximum(np.abs(t["ref"][0]), 1e-30)
+    worst = int(np.argmax(rel0))
+    later, _ = term_ratios(t, slice(1, None))
+    fig = {"term_rel_step0": float(rel0[worst]),
+           "term_step0": TERMS[worst],
+           "term_rel_step0_jax": float(np.max(
+               t["jax"][0] / np.maximum(np.abs(t["ref"][0]), 1e-30))),
+           "terms_later": pooled_figures(later[np.isfinite(later)])}
+    for key, vec in (("g", run["grads"]), ("d", change(run))):
+        if pooled:
+            fig[key] = pooled_figures(vector_ratios(plan, vec, golden, key))
+        else:
+            d = distance_figures(plan, vec, golden, key, "jax", GRAD_EPS)
+            fig[key] = rule_figures(d["port"], d["jax"], d["floor"])
+    d = bn_figures(run, golden)
+    fig["bn"] = rule_figures(d["port"], d["jax"], d["floor"])
+    return fig
+
+
+@names_threads
 def hold_float32(run: Dict, golden, plan, what: str,
                  pooled: bool = False) -> Dict:
     """T1's and T3's bars: step 0's terms within ``TERM_REL`` of float64;
@@ -1297,32 +1374,19 @@ def hold_float32(run: Dict, golden, plan, what: str,
     every run, so a group's distance counts the few elements whose
     rounding flips, 0 in one run and a bf16 step in another, and Adam
     carries those flips into the parameter change.)"""
-    t = term_figures(run, golden)
-    rel0 = t["port"][0] / np.maximum(np.abs(t["ref"][0]), 1e-30)
-    worst = int(np.argmax(rel0))
-    require(rel0[worst] <= TERM_REL, f"{what}: step 0 {TERMS[worst]} rel "
-            f"{rel0[worst]:.3e} from float64 (bar {TERM_REL})")
-    later, _ = term_ratios(t, slice(1, None))
-    later = later[np.isfinite(later)]
-    fig = {"term_rel_step0": float(rel0[worst]),
-           "term_rel_step0_jax": float(np.max(
-               t["jax"][0] / np.maximum(np.abs(t["ref"][0]), 1e-30))),
-           "terms_later": pooled_figures(later)}
+    fig = float32_figures(run, golden, plan, pooled)
+    require(fig["term_rel_step0"] <= TERM_REL, f"{what}: step 0 "
+            f"{fig['term_step0']} rel {fig['term_rel_step0']:.3e} from "
+            f"float64 (bar {TERM_REL})")
     require(fig["terms_later"]["median"] <= POOL_MEDIAN
             and fig["terms_later"]["max"] <= TERM_LATER_MAX,
             f"{what}: later steps' terms {fig['terms_later']} (median "
             f"bar {POOL_MEDIAN}, largest {TERM_LATER_MAX})")
-    for key, vec, name in (("g", run["grads"], "gradient"),
-                           ("d", change(run), "parameter change")):
+    for key, name in (("g", "gradient"), ("d", "parameter change")):
         if pooled:
-            fig[key] = pooled_figures(vector_ratios(plan, vec, golden, key))
             check_pooled(fig[key], f"{what} {name} groups")
         else:
-            d = distance_figures(plan, vec, golden, key, "jax", GRAD_EPS)
-            fig[key] = rule_figures(d["port"], d["jax"], d["floor"])
             check_rule(fig[key], f"{what} {name}")
-    d = bn_figures(run, golden)
-    fig["bn"] = rule_figures(d["port"], d["jax"], d["floor"])
     check_rule(fig["bn"], f"{what} BatchNorm statistics")
     return fig
 
@@ -1341,6 +1405,7 @@ def bf16_ratios(run: Dict, golden, plan) -> Dict:
                            for j in range(len(TERMS)) if live[0, j]}}
 
 
+@names_threads
 def hold_bf16(run: Dict, golden, plan, what: str) -> Dict:
     """T2's pooled rule: each pool of `bf16_ratios` with its median within
     ``POOL_MEDIAN`` and its ``POOL_Q`` quantile within
@@ -1362,6 +1427,7 @@ def golden_pair(path: str) -> Dict:
             "jax": jax_}
 
 
+@names_threads
 def hold_t3_grids(run: Dict, golden, what: str) -> Dict:
     """T3's z-fold grids, per tile, by P4's voxel bars."""
     require(len(run["grids"]) == 1, f"{what}: {len(run['grids'])} grids")
@@ -1400,3 +1466,251 @@ def tile_shares(name: str, root: str, device="cpu") -> List[Dict]:
         shares.append({"loss": float(loss), "grad_norm": float(torch.sqrt(
             sum((g.double() ** 2).sum() for g in grads if g is not None)))})
     return shares
+
+
+# -- the thread sweep ---------------------------------------------------------
+#
+# PyTorch's CPU kernels may split a reduction among the intra-op threads, so
+# a kernel that keeps one float32 sum per thread gives other figures at
+# another thread count (its channels-last batch norm did: ROADMAP Queue 3
+# item 10).  `thread_sweep` finds such a kernel on a training path in one
+# run:
+#
+#     PYTHONPATH=. python tests/torch_port_golden.py sweep t3 --threads 1 8
+#
+# and `python tests/torch_port_golden.py holds t3 --threads 1 2 8` prints
+# T1's or T3's figures at each count.
+
+SWEEP_TOL = 1e-6          # rel-max between two thread counts
+SWEEP_SAMPLE = 65536      # elements of each leaf module's output kept
+TRAIN_PATH_OF = {"t1": ("flagship", "float32"), "t3": ("lidar", "bfloat16")}
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| / max |a| of two tensors (non-float ones: 0 or 1)."""
+    import torch
+    if a.shape != b.shape:
+        return float("inf")
+    if not a.is_floating_point():
+        return 0.0 if torch.equal(a, b) else 1.0
+    if a.numel() == 0:
+        return 0.0
+    a, b = a.detach().double(), b.detach().double()
+    top, diff = float(a.abs().max()), float((a - b).abs().max())
+    return diff / top if top > 0 else (0.0 if diff == 0 else float("inf"))
+
+
+def port_frame(lines) -> str:
+    """file:line (function) of the innermost frame of the port in a list of
+    `traceback.format_stack` lines."""
+    import re
+    for line in reversed(lines):
+        m = re.search(r'File "[^"]*/(lanemapping_tpu_torch/[^"]+)", line '
+                      r'(\d+), in (\S+)', line)
+        if m:
+            return f"{m.group(1)}:{m.group(2)} ({m.group(3)})"
+    return "?"
+
+
+def op_sweep(fn, other: int, tol: float = SWEEP_TOL) -> List[Dict]:
+    """Runs ``fn()`` once, and every aten op in it a second time on the same
+    inputs (on copies of what it writes) at ``other`` intra-op threads:
+    [{op, output (its index), pass (forward, or the autograd node of the
+    backward), where (the port's frame that called it, or that built the
+    node), calls, rel (the largest rel-max between the two counts)}] of
+    the outputs above ``tol``, largest first.  Random ops and those that
+    return uninitialised memory run once.  (The gradient of a bias before
+    a BatchNorm is 0 up to rounding, so any change is of its own size.)"""
+    import traceback
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def copy(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, (list, tuple)):
+            return type(v)(copy(t) for t in v)
+        return v
+
+    found: Dict[tuple, Dict] = {}
+
+    class Sweep(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if (func.is_view or "empty" in func.__name__
+                    or torch.Tag.nondeterministic_seeded in func.tags):
+                return func(*args, **kwargs)
+            args2, kwargs2, written = list(args), dict(kwargs), []
+            for i, a in enumerate(func._schema.arguments):
+                if a.alias_info is None or not a.alias_info.is_write:
+                    continue
+                if i < len(args):
+                    args2[i] = copy(args[i])
+                    written.append((args[i], args2[i]))
+                elif a.name in kwargs:
+                    kwargs2[a.name] = copy(kwargs[a.name])
+                    written.append((kwargs[a.name], kwargs2[a.name]))
+            with threads(other):
+                out2 = func(*args2, **kwargs2)
+            out = func(*args, **kwargs)
+            pairs = ([p for w in written for p in zip(tree_leaves(w[0]),
+                                                       tree_leaves(w[1]))]
+                     if written else list(zip(tree_leaves(out),
+                                              tree_leaves(out2))))
+            rels = [(i, rel_diff(a, b)) for i, (a, b) in enumerate(pairs)
+                    if isinstance(a, torch.Tensor)]
+            if any(r > tol for _, r in rels):
+                node = torch._C._current_autograd_node()
+                where = ("forward", port_frame(traceback.format_stack())) \
+                    if node is None else (node.name(), port_frame(
+                        node.metadata.get("traceback_", [])))
+            for i, r in rels:
+                if r <= tol:
+                    continue
+                key = (str(func), i) + where
+                rec = found.setdefault(key, {
+                    "op": key[0], "output": i, "pass": where[0],
+                    "where": where[1], "calls": 0, "rel": 0.0})
+                rec["calls"] += 1
+                rec["rel"] = max(rec["rel"], r)
+            return out
+
+    with torch.autograd.detect_anomaly(check_nan=False), Sweep():
+        fn()
+    return sorted(found.values(), key=lambda r: -r["rel"])
+
+
+def leaf_outputs(model) -> tuple:
+    """(records, hooks): every leaf module's output, as a strided
+    subsample of ``SWEEP_SAMPLE`` elements of each tensor, per call."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    rec: Dict[str, List] = {}
+
+    def hook(name):
+        def keep(m, inp, out):
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor) and t.is_floating_point():
+                    flat = t.detach().reshape(-1)
+                    step = max(1, flat.numel() // SWEEP_SAMPLE)
+                    rec.setdefault(name, []).append(flat[::step].double())
+        return keep
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in
+             model.named_modules() if not list(m.children())]
+    return rec, hooks
+
+
+def module_where(model, name: str) -> str:
+    import inspect
+    cls = type(model.get_submodule(name))
+    try:
+        path = inspect.getsourcefile(cls)
+        line = inspect.getsourcelines(cls)[1]
+    except (OSError, TypeError):
+        return cls.__name__
+    return f"{os.path.relpath(path, REPO)}:{line} ({cls.__name__})"
+
+
+def thread_sweep(path: str, batch: Dict, counts=(1, HOLD_THREADS),
+                 tol: float = SWEEP_TOL) -> Dict:
+    """One step of ``path`` (``t1``/``t3``: `TRAIN_PATH_OF`) on the loader
+    batch ``batch`` at each of the two thread counts, compared: ``modules``,
+    the leaf modules whose forward output differs by more than ``tol``
+    rel-max (on `leaf_outputs`' subsample; they inherit what ran before
+    them), ``grads``, the parameters whose step-0 gradient does, and
+    ``ops``, `op_sweep` of the step at ``counts[0]`` against
+    ``counts[1]``: the kernels that move by themselves."""
+    import tempfile
+    import torch
+    name, dtype = TRAIN_PATH_OF[path]
+    runs = []
+    for n in counts:
+        with threads(n), tempfile.TemporaryDirectory() as logs:
+            runner = train_runner(name, "cpu", dtype, logs)
+            rec, hooks = leaf_outputs(runner.model)
+            try:
+                grads = run_steps(runner, batch, steps=1)["grads"]
+            finally:
+                for h in hooks:
+                    h.remove()
+            runs.append((rec, grads))
+    model = runner.model
+    (rec_a, g_a), (rec_b, g_b) = runs
+    modules = [{"module": k, "where": module_where(model, k), "rel": r}
+               for k in rec_a for r in [max(rel_diff(a, b) for a, b in zip(
+                   rec_a[k], rec_b[k]))] if r > tol]
+    grads = [{"param": k, "rel": r} for k in g_a for r in [rel_diff(
+        torch.from_numpy(g_a[k]), torch.from_numpy(g_b[k]))] if r > tol]
+    with threads(counts[0]), tempfile.TemporaryDirectory() as logs:
+        runner = train_runner(name, "cpu", dtype, logs)
+        ops = op_sweep(lambda: run_steps(runner, batch, steps=1),
+                       counts[1], tol)
+    return {"path": path, "counts": list(counts), "tol": tol,
+            "modules": sorted(modules, key=lambda r: -r["rel"]),
+            "grads": sorted(grads, key=lambda r: -r["rel"]), "ops": ops}
+
+
+def hold_at(path: str, batch: Dict, n: int) -> Dict:
+    """T1's or T3's hold on the CPU at ``n`` intra-op threads: {threads,
+    seconds, failure (the first bar missed, or None), figures
+    (`float32_figures`)}."""
+    import time
+    name, dtype = TRAIN_PATH_OF[path]
+    with threads(n):
+        t0 = time.perf_counter()
+        run = run_train(name, "cpu", dtype, batch, grids=path == "t3")
+        seconds = time.perf_counter() - t0
+        golden = golden_pair(path)
+        plan = train_plan(run, load_train_meta()["paths"][path])
+        failure = None
+        try:
+            hold_float32(run, golden, plan, f"{path.upper()} on the CPU",
+                         pooled=path == "t3")
+            if path == "t3":
+                hold_t3_grids(run, golden["jax"], "T3 on the CPU")
+        except AssertionError as e:
+            failure = str(e)
+        return {"path": path, "threads": n, "seconds": seconds,
+                "failure": failure,
+                "figures": float32_figures(run, golden, plan,
+                                           pooled=path == "t3")}
+
+
+def main(argv=None):
+    """``holds t1|t3 --threads N ...``: one JSON line of `hold_at` a count;
+    ``sweep t1|t3 --threads A B``: `thread_sweep`'s JSON."""
+    import argparse
+    import tempfile
+    import torch
+    from lanemapping_tpu_torch.data import synthetic
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("what", choices=("holds", "sweep"))
+    ap.add_argument("path", choices=sorted(TRAIN_PATH_OF))
+    ap.add_argument("--threads", type=int, nargs="+",
+                    default=[1, HOLD_THREADS])
+    ap.add_argument("--out", help="write the sweep's JSON here too")
+    args = ap.parse_args(argv)
+    print(json.dumps({"torch": torch.__version__, "cpu_capability":
+                      torch.backends.cpu.get_cpu_capability()}), flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        train_dataset(root, synthetic)
+        batch = first_train_batch(TRAIN_PATH_OF[args.path][0], root)
+        if args.what == "holds":
+            for n in args.threads:
+                print(json.dumps(hold_at(args.path, batch, n)), flush=True)
+            return
+        require(len(args.threads) == 2, "sweep compares two counts")
+        rec = thread_sweep(args.path, batch, tuple(args.threads))
+    text = json.dumps(rec, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
+
+
+if __name__ == "__main__":
+    import sys
+    sys.path.insert(0, REPO)
+    main()

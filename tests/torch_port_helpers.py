@@ -22,6 +22,16 @@ TINY = os.path.join(REPO, "configs", "tiny_test.py")
 TINY_LIDAR = os.path.join(REPO, "configs", "tiny_test_lidar.py")
 
 
+@pytest.fixture
+def golden_threads(request):
+    """A golden hold's intra-op thread count (``HOLD_THREADS``, or the
+    test's parameter), restored after the test: PyTorch's CPU figures may
+    depend on it, and an xdist worker may have run anything before."""
+    from torch_port_golden import HOLD_THREADS, threads
+    with threads(getattr(request, "param", HOLD_THREADS)) as n:
+        yield n
+
+
 def configs(path=TINY):
     """(JAX Config, port Config) of one config file."""
     import lanemapping_tpu as lm
