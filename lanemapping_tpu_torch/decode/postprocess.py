@@ -26,9 +26,12 @@ row anchor r sits at image row 8*r+3.
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ..utils.logger import count, recording, trace_span, traced
 
 BUFF_WIDTH = 6
 BUFF_DEPTH = 24
@@ -498,30 +501,55 @@ def render_semantic_map(ply: np.ndarray, img: int = 1152) -> np.ndarray:
 # map assembly (reference `get_lane_map_numpy_with_label:761-886`)
 # --------------------------------------------------------------------------
 
+_fallback_said = False
+
+
+def _native_fallback(stage: str, err: Optional[BaseException]) -> None:
+    """The NumPy result of ``stage`` stands in for the native one: counted
+    (``native_fallbacks``, while a profiler runs), and said once a
+    process with the exception behind it (``err``, or the library's own
+    failure to build or load)."""
+    global _fallback_said
+    count("native_fallbacks")
+    if _fallback_said:
+        return
+    _fallback_said = True
+    if err is None:
+        from .. import native
+        err = native.load_error()
+    warnings.warn(f"native post-process unavailable: {stage} and any later "
+                  f"stage run in NumPy ({err!r})", RuntimeWarning,
+                  stacklevel=3)
+
+
 def _smooth_dispatch(coors, orient, seg_conf, img, occ_first_row_only=False):
     """Prefer the native C++ tracker (`native/`), falling back
     to the NumPy implementation when the library isn't built."""
+    err = None
     try:
         from ..native import smooth_lanes_native
         out = smooth_lanes_native(coors, orient, seg_conf, True, img,
                                   occ_first_row_only=occ_first_row_only)
         if out is not None:
             return out
-    except Exception:
-        pass
+    except Exception as e:
+        err = e
+    _native_fallback("tracker", err)
     return smooth_lanes(coors, orient, seg_conf=seg_conf,
                         complete_inner_nodes=True,
                         occ_first_row_only=occ_first_row_only)
 
 
 def _nms_dispatch(lines, sem_rows, img):
+    err = None
     try:
         from ..native import polyline_nms_native
         out = polyline_nms_native(lines, sem_rows, img)
         if out is not None:
             return out
-    except Exception:
-        pass
+    except Exception as e:
+        err = e
+    _native_fallback("NMS", err)
     return polyline_nms(lines, sem_rows)
 
 
@@ -529,6 +557,7 @@ def _uniform_dispatch(ply, endp_map, ep, r_buff, keep_line_ends=False):
     """Native semantic uniformisation + endpoint pruning with NumPy
     fallback; ``ep`` [M,2] are the endpoint coordinates already scattered
     into ``endp_map``."""
+    err = None
     try:
         from ..native import uniform_semantics_native
         out = uniform_semantics_native(ply, ep, r_buff=r_buff,
@@ -539,15 +568,20 @@ def _uniform_dispatch(ply, endp_map, ep, r_buff, keep_line_ends=False):
             if len(dropped):
                 endp_map[dropped[:, 0], dropped[:, 1]] = 0.0
             return ply, endp_map
-    except Exception:
-        pass
+    except Exception as e:
+        err = e
+    _native_fallback("semantics", err)
     return uniform_semantics(ply, endp_map, r_buff=r_buff,
                              ep=np.asarray(ep, np.float64),
                              keep_line_ends=keep_line_ends)
 
 
+@traced("serve.postprocess")
 def lane_maps_from_decode(dec: Dict, cfg) -> Dict:
-    """Host assembly of final lane maps from the on-device decode dict."""
+    """Host assembly of final lane maps from the on-device decode dict.
+    While a profiler runs it counts ``tiles`` and ``proposals`` (those that
+    pass ``proposal_obj_thre`` and the border cut) and spans the tracker,
+    NMS and semantics of each tile."""
     row_size = cfg.heads.row_size
     img = cfg.list_img_size_xy[0]
     B, P, S = dec["cls_offset"].shape
@@ -563,6 +597,12 @@ def lane_maps_from_decode(dec: Dict, cfg) -> Dict:
         v_ext[conf < cfg.proposal_obj_thre, :] = 0.0
         v_ext[0:4, :] = 0.0   # border proposals (reference `:814-816`)
         v_ext[-6:, :] = 0.0
+        if recording():
+            kept = conf >= cfg.proposal_obj_thre
+            kept[0:4] = False
+            kept[-6:] = False
+            count("proposals", int(np.count_nonzero(kept)))
+            count("tiles")
         exist = np.where(v_ext > 0.5, v_ext, -1.0)
 
         coors = np.array(dec["cls_offset"][b], dtype=np.float64)
@@ -587,9 +627,11 @@ def lane_maps_from_decode(dec: Dict, cfg) -> Dict:
         # cfg.ref_exact_occupancy_filter: reproduce the reference's
         # single-row occupancy_filter bug (`polyline_utils.py:220`)
         occ_first = bool(cfg.get("ref_exact_occupancy_filter", False))
-        smooth = _smooth_dispatch(coors, orient, seg_conf, img,
-                                  occ_first_row_only=occ_first)
-        smooth = _nms_dispatch(smooth, seg_conf, img)
+        with trace_span("postprocess.track"):
+            smooth = _smooth_dispatch(coors, orient, seg_conf, img,
+                                      occ_first_row_only=occ_first)
+        with trace_span("postprocess.nms"):
+            smooth = _nms_dispatch(smooth, seg_conf, img)
 
         if view_detail:
             # raw-argmax and expectation variants (reference `:821-845`:
@@ -621,10 +663,11 @@ def lane_maps_from_decode(dec: Dict, cfg) -> Dict:
 
         sem = lane_vertex_semantics(smooth, point_sem)
         ply = np.stack([smooth, sem], axis=2)
-        ply, endp_map = _uniform_dispatch(
-            ply, endp_map, np.asarray(pts, np.float64).reshape(-1, 2),
-            r_buff=cfg.get("endp_prune_r_buff", 20),
-            keep_line_ends=cfg.get("endp_keep_line_ends", False))
+        with trace_span("postprocess.semantics"):
+            ply, endp_map = _uniform_dispatch(
+                ply, endp_map, np.asarray(pts, np.float64).reshape(-1, 2),
+                r_buff=cfg.get("endp_prune_r_buff", 20),
+                keep_line_ends=cfg.get("endp_keep_line_ends", False))
         ply = remove_short(ply, min_v_count=8)
         out["cls_offset_smooth"].append(ply)
         out["endp_by_cls"].append(endp_map)

@@ -27,6 +27,11 @@ net's output dict holds (the loss function reads them):
   restored), optimizer state and LR schedule as they were, and still
   advances ``step``; ``skipped_nan`` reports it.  This costs one host read
   of the loss per step.
+- **Spans** (`utils/logger.py`, recorded only while a profiler runs): the
+  step ``train.step`` holds its host phases ``train.buffers``,
+  ``train.cast``, ``train.forward``, ``train.loss``, ``train.backward``,
+  ``train.guard`` (the loss read) and ``train.optimizer``, in that order;
+  a device idle gap that straddles two phases falls in ``train.step``.
 - **Data parallel as the JAX step under pjit** (a process group of more
   than one rank, `parallel/dist.py`): each rank runs the backward pass on
   its contribution to the global loss (`models/head_losses.py`; BatchNorm
@@ -50,6 +55,7 @@ import numpy as np
 import torch
 
 from ..parallel.dist import get_world_size, sum_over_ranks
+from ..utils.logger import trace_span, traced
 
 
 @dataclass
@@ -134,20 +140,27 @@ def make_train_step(loss_fn: Callable[[Dict, Dict], Dict],
         q = p.to(compute_dtype)
         return q.to(act_dtype) if act_dtype != compute_dtype else q
 
+    @traced("train.step")
     def step(state: TrainState, batch: Dict) -> Dict:
         model = state.model
         model.train()
-        buffers = [b.detach().clone() for b in model.buffers()]
-        inp = model_input(batch, use_lidar, compute_dtype)
-        if compute_dtype is None:
-            out = model(inp)
-        else:
-            params = {n: cast(p) for n, p in model.named_parameters()}
-            out = torch.func.functional_call(model, params, (inp,))
-        res = loss_fn(out, batch)
+        with trace_span("train.buffers"):
+            buffers = [b.detach().clone() for b in model.buffers()]
+        with trace_span("train.cast"):
+            inp = model_input(batch, use_lidar, compute_dtype)
+            if compute_dtype is not None:
+                params = {n: cast(p) for n, p in model.named_parameters()}
+        with trace_span("train.forward"):
+            if compute_dtype is None:
+                out = model(inp)
+            else:
+                out = torch.func.functional_call(model, params, (inp,))
+        with trace_span("train.loss"):
+            res = loss_fn(out, batch)
         loss = res["loss"]
-        state.optimizer.zero_grad(set_to_none=False)
-        loss.backward()
+        with trace_span("train.backward"):
+            state.optimizer.zero_grad(set_to_none=False)
+            loss.backward()
         stats = {k: v.detach() for k, v in res["loss_stats"].items()}
         stats["loss"] = loss.detach()
         world = get_world_size()
@@ -156,22 +169,24 @@ def make_train_step(loss_fn: Callable[[Dict, Dict], Dict],
             keys = list(stats)
             stats = dict(zip(keys, sum_over_ranks(torch.stack(
                 [stats[k].float() for k in keys])).unbind()))
-        ok = bool(torch.isfinite(stats["loss"]))
+        with trace_span("train.guard"):  # the step's one wait on the card
+            ok = bool(torch.isfinite(stats["loss"]))
         if ok:
-            for p in model.parameters():
-                # optax updates every leaf: a parameter the loss does not
-                # reach takes a zero gradient (AdamW still decays it)
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            if world > 1:
-                grads = [p.grad for p in model.parameters()]
-                flat = sum_over_ranks(torch.cat([g.reshape(-1)
-                                                 for g in grads]))
-                for g, s in zip(grads, flat.split([g.numel()
-                                                   for g in grads])):
-                    g.copy_(s.view_as(g))
-            state.optimizer.step()
-            state.scheduler.step()
+            with trace_span("train.optimizer"):
+                for p in model.parameters():
+                    # optax updates every leaf: a parameter the loss does not
+                    # reach takes a zero gradient (AdamW still decays it)
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if world > 1:
+                    grads = [p.grad for p in model.parameters()]
+                    flat = sum_over_ranks(torch.cat([g.reshape(-1)
+                                                     for g in grads]))
+                    for g, s in zip(grads, flat.split([g.numel()
+                                                       for g in grads])):
+                        g.copy_(s.view_as(g))
+                state.optimizer.step()
+                state.scheduler.step()
         else:
             with torch.no_grad():
                 for b, saved in zip(model.buffers(), buffers):

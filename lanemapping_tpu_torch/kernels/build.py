@@ -19,6 +19,8 @@ import threading
 import time
 from typing import Dict, Iterable, Optional
 
+from ..utils.logger import record_build
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -80,7 +82,9 @@ def build_all(names: Iterable[str], force: bool = False) -> Dict[str, Dict]:
             failed.append(f"{n}: nvcc exit {proc.returncode}\n{out}")
             continue
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
-        built[n] = {"seconds": time.perf_counter() - t0, "ptxas": out}
+        t1 = time.perf_counter()
+        record_build("nvcc", n, t0, t1)
+        built[n] = {"seconds": t1 - t0, "ptxas": out}
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return built

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..registry import NET, build_backbone, build_heads, build_pcencoder
+from ..utils.logger import trace_span
 from .row_head import GridSeg, PerLaneConvHead, RowSharNotReducRef
 
 _IMAGE_KEYS = ("orient", "endpoint")
@@ -41,7 +42,14 @@ class Detector1stage(nn.Module):
 
     def forward(self, proj):
         """[B, H, W, 3] tile, or the raw-point dict of the LiDAR encoder ->
-        raw head map dict (NHWC image maps)."""
+        raw head map dict (NHWC image maps).  Outside training the call is
+        the span ``serve.forward`` (the training step has its own)."""
+        if self.training:
+            return self._forward(proj)
+        with trace_span("serve.forward"):
+            return self._forward(proj)
+
+    def _forward(self, proj):
         if isinstance(proj, dict):
             fea, fea_up, bi_seg, endp_est = self.pcencoder(
                 proj["points"], proj.get("points_mask"))

@@ -12,16 +12,19 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 from typing import Optional
 
 import numpy as np
+
+from ..utils.logger import record_build
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "postproc.cpp")
 _LIB = os.path.join(os.path.dirname(_HERE), "_build", "libpostproc.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_failed = False
+_failed: Optional[BaseException] = None  # why the library is unavailable
 
 
 def build_library(force: bool = False) -> str:
@@ -32,7 +35,9 @@ def build_library(force: bool = False) -> str:
     tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
            _SRC, "-o", tmp]
+    t0 = time.perf_counter()
     subprocess.run(cmd, check=True, capture_output=True)
+    record_build("g++", "postproc", t0, time.perf_counter())
     os.replace(tmp, _LIB)  # atomic: concurrent processes never see half a file
     return _LIB
 
@@ -40,10 +45,10 @@ def build_library(force: bool = False) -> str:
 def get_lib() -> Optional[ctypes.CDLL]:
     """The loaded library, building it on first use; None if unavailable."""
     global _lib, _failed
-    if _lib is not None or _failed:
+    if _lib is not None or _failed is not None:
         return _lib
     with _lock:
-        if _lib is not None or _failed:
+        if _lib is not None or _failed is not None:
             return _lib
         try:
             path = build_library()
@@ -65,9 +70,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
                                                  ctypes.c_int]
             lib.lm_uniform_semantics.restype = None
             _lib = lib
-        except Exception:
-            _failed = True
+        except Exception as e:
+            _failed = e
     return _lib
+
+
+def load_error() -> Optional[BaseException]:
+    """Why ``get_lib`` found no library (None while it has one or has not
+    tried)."""
+    return _failed
 
 
 def _dp(a: np.ndarray):

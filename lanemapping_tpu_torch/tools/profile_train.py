@@ -16,6 +16,11 @@ pattern rules on the names that stand in for XLA's ``hlo_category``), and
 the device's busy share of the traced window (the union of the device
 intervals over the span of all the trace's events).
 
+The record also holds the host milliseconds a step of each of the step's
+phases (``host_ms_per_step``: the wall time of the ``train.*`` spans that
+`engine/state.py::make_train_step` records while the profiler runs, over
+the profiled steps; not on ``--parse-only``).
+
 ``torch.profiler`` gives no bytes per kernel, so the root script's
 ``gb_per_s`` and ``hbm_bw_util`` have no counterpart here and are not
 estimated.  The record goes to ``<log-dir>/profile_train.json`` unless
@@ -31,7 +36,7 @@ import os
 import re
 import time
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 # (category, pattern on the kernel name), first match wins; copies and
 # memsets are "copy_cast" by their trace category as well
@@ -115,15 +120,31 @@ def device_time_by_kernel(trace: Dict, top_n: int = 20) -> Dict:
             "device_busy_share": busy / window if window else None}
 
 
-def profile_steps(step, state, batch, steps: int, trace_path: str) -> None:
+def phase_ms_per_step(spans: List[Dict], steps: int) -> Dict[str, float]:
+    """Host milliseconds a step of each ``train.*`` phase among the
+    recorder's ``spans``, over ``steps`` steps."""
+    out: Dict[str, float] = {}
+    for s in spans:
+        if s["name"].startswith("train."):
+            out[s["name"]] = out.get(s["name"], 0.0) + (
+                s["end_ns"] - s["start_ns"]) / 1e6 / max(steps, 1)
+    return out
+
+
+def profile_steps(step, state, batch, steps: int, trace_path: str
+                  ) -> Dict[str, float]:
     """``steps`` training steps under ``torch.profiler``, the card drained
     inside the session, the trace written to ``trace_path``; profiled once
     more if the trace holds no device event (a second profiler session of
-    one process on the card has handed back such a trace)."""
+    one process on the card has handed back such a trace).  Returns the
+    host milliseconds a step of each phase (`phase_ms_per_step`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from ..utils.logger import recorded, reset_recorder
+
     for attempt in range(2):
+        reset_recorder()
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
@@ -136,13 +157,14 @@ def profile_steps(step, state, batch, steps: int, trace_path: str) -> None:
             trace = json.load(f)
         if any(e.get("cat") in DEVICE_CATS
                for e in trace.get("traceEvents", [])):
-            return
+            return phase_ms_per_step(recorded()["spans"], steps)
         print("[profile] the trace holds no device event; profiling again",
               flush=True)
     raise RuntimeError("[profile] torch.profiler recorded no device event")
 
 
-def write_record(args, provenance: Dict) -> Dict:
+def write_record(args, provenance: Dict,
+                 host_ms: Optional[Dict[str, float]] = None) -> Dict:
     with open(args.trace) as f:
         agg = device_time_by_kernel(json.load(f))
     record = {
@@ -156,6 +178,7 @@ def write_record(args, provenance: Dict) -> Dict:
         "device_busy_share": agg["device_busy_share"],
         "by_category": agg["by_category"],
         "top_ops": agg["top_ops"],
+        **({"host_ms_per_step": host_ms} if host_ms is not None else {}),
         "not_measured": NOT_MEASURED,
         "trace": os.path.abspath(args.trace),
         **provenance,
@@ -175,6 +198,8 @@ def write_record(args, provenance: Dict) -> Dict:
         print(f"  cat {c['pct']:6.2f}%  {c['name']}")
     for o in record["top_ops"][:10]:
         print(f"{o['pct']:6.2f}%  {o['name'][:100]}")
+    for name, ms in (host_ms or {}).items():
+        print(f"  host {ms:8.3f} ms/step  {name}")
     print(f"[profile] wrote {args.out}", flush=True)
     return record
 
@@ -224,8 +249,8 @@ def main(argv=None) -> Dict:
     torch.cuda.synchronize()
     print(f"[profile] first step {time.perf_counter() - t0:.1f} s",
           flush=True)
-    profile_steps(step, state, batch, args.steps, args.trace)
-    return write_record(args, card_provenance(device))
+    host_ms = profile_steps(step, state, batch, args.steps, args.trace)
+    return write_record(args, card_provenance(device), host_ms)
 
 
 if __name__ == "__main__":

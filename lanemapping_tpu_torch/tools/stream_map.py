@@ -73,6 +73,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.logger import traced
+
 # the device stages of each input path, in order
 STAGES = {"las": ("upload", "rasterize", "forward", "decode"),
           "lidar": ("upload", "voxelize", "forward", "decode"),
@@ -181,6 +183,7 @@ def place(model: torch.nn.Module, device: torch.device,
     return model
 
 
+@traced("serve.input")
 def network_input(kind: str, dev: Sequence[torch.Tensor], cfg,
                   dtype: torch.dtype):
     """The network's input from a batch's arrays on the device: ``las``
@@ -205,6 +208,7 @@ def network_input(kind: str, dev: Sequence[torch.Tensor], cfg,
     return x.expand(*x.shape[:-1], 3).contiguous()
 
 
+@traced("serve.decode")
 def readback_view(out: Dict[str, torch.Tensor], cfg) -> Dict:
     """The decode keys the host postprocess reads, as the stream ships them
     back (on the device)."""
