@@ -244,19 +244,32 @@ or outside a checkout.  Phases, each of which fails the run:
    bf16-rounded weights, TF32 off, K1z once a step): terms and BatchNorm
    statistics by T1's bars, the bf16-rounded gradient and the parameter
    change by the pooled rule, the z-fold grids by P4's; one line of
-   figures per path.
+   figures per path.  K2 launches on T2 alone, at each of the flagship's
+   32 BatchNorm calls a step that it takes, each way.
+27. K2, the training BatchNorm of a bf16 activation in one pass each way,
+   at each of the flagship's BatchNorm inputs it takes at batch 8
+   (channels last: the stem's [8, 64, 576, 576], the ResNet-34 stages'
+   and the head's): forward and backward against its plain versions in
+   float64 (y within one bf16 step, dx, dw, db within one bf16 step by
+   relative L2, mean and inverse std within rel 1e-5, the running
+   statistics at float32 tolerance, a frozen call moving nothing), then
+   timed in turns with the plain versions and ``native_batch_norm``'s
+   mixed call and its backward beside its bound (16 bytes an element),
+   and summed over a training step's layers.
 
 Phases 9, 10, 12, 13, 15, 16 and 18 run with PyTorch's default precision
 flags (TF32 convolutions on) but where they say otherwise.  Each phase
 prints its wall time.  Before the last line it prints ``{"kernels":
-[...]}`` (with each kernel's launches on the serving and the training
-path, the four configs of phases 12-13, the 3-D map paths of phase 15,
+[...]}`` (K1, K1z and K2, with each kernel's launches on the serving
+and the training path, the four configs of phases 12-13, the 3-D map paths of phase 15,
 the branches of phase 16, phase 18's Base head and flag runs, K1z's per
 rank in phase 20(d), K1's over phase 21's two replicas and both on phase
 22's paths, ``launches_soak``, phase 23's, ``launches_bench``, phase
 25's, ``launches_golden``, and phase 26's, ``launches_golden_train``;
 K1z's entry carries phase 24's figures at 12
-columns, ``wide_cols``); the last
+columns, ``wide_cols``; K2's, phase 27's figures at the stem, a step's
+sums and each shape's, and its launches in phases 9-10, 12-13, 15-16,
+22-23, 25 and 26); the last
 line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -311,6 +324,16 @@ GRID = (576, 576, 10)  # the LiDAR config's voxel grid, x, y, z
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at the 700 W limit
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's 1.98 GHz boost clock
+# phase 27: the flagship's training BatchNorm inputs that K2 takes at batch
+# 8 (channels last, bf16), with the number of a step's layers at each
+K2_SHAPES = [((8, 64, 576, 576), 1), ((8, 64, 288, 288), 6),
+             ((8, 128, 144, 144), 9), ((8, 256, 144, 144), 13),
+             ((8, 16, 288, 288), 1), ((8, 16, 144, 144), 1),
+             ((8, 8, 144, 144), 1)]
+K2_LAYERS = sum(n for _, n in K2_SHAPES)
+# K2's bytes an element, forward and backward: x read twice and y written;
+# dy and x read twice and dx written (2 bytes each)
+K2_BYTES_PER_ELEMENT = 16
 
 
 class SmokeFailure(RuntimeError):
@@ -401,16 +424,32 @@ def phase_card():
 
 
 def reset_launches():
+    from lanemapping_tpu_torch.kernels.batch_norm import (bn_backward,
+                                                          bn_forward)
     from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_mean
     from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_mean
     bev_bin_mean.launches = voxel_bin_mean.launches = 0
+    bn_forward.launches = bn_backward.launches = 0
 
 
 def read_launches():
+    """Launches since ``reset_launches`` of K1, K1z and K2's forward and
+    backward passes (one each a training BatchNorm call K2 takes)."""
+    from lanemapping_tpu_torch.kernels.batch_norm import (bn_backward,
+                                                          bn_forward)
     from lanemapping_tpu_torch.kernels.bev_bin import bev_bin_mean
     from lanemapping_tpu_torch.kernels.voxel_bin import voxel_bin_mean
     return {"bev_bin_mean": bev_bin_mean.launches,
-            "voxel_bin_mean": voxel_bin_mean.launches}
+            "voxel_bin_mean": voxel_bin_mean.launches,
+            "bn_forward": bn_forward.launches,
+            "bn_backward": bn_backward.launches}
+
+
+def launch_counts(k1=0, k1z=0, k2=0):
+    """``read_launches``'s figures for ``k1`` K1, ``k1z`` K1z and ``k2``
+    K2 calls, each with its backward pass."""
+    return {"bev_bin_mean": k1, "voxel_bin_mean": k1z, "bn_forward": k2,
+            "bn_backward": k2}
 
 
 def time_in_turns(fns, iters=20):
@@ -445,12 +484,13 @@ def profile_passes(fn, iters):
 def phase_build():
     from lanemapping_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    built = build.build_all(["bev_bin", "voxel_bin"], force=True)
-    log(f"K1 + K1z build {time.perf_counter() - t0:.3f} s (nvcc "
+    built = build.build_all(["bev_bin", "voxel_bin", "batch_norm"],
+                            force=True)
+    log(f"K1 + K1z + K2 build {time.perf_counter() - t0:.3f} s (nvcc "
         f"{' '.join(build.NVCC_FLAGS)})")
     for name, rec in built.items():
         log(f"{name}: nvcc {rec['seconds']:.3f} s; ptxas:\n{rec['ptxas']}")
-    for name in ("bev_bin", "voxel_bin"):
+    for name in ("bev_bin", "voxel_bin", "batch_norm"):
         check(os.path.isfile(os.path.join(build.BUILD_DIR, f"lib{name}.so")),
               f"lib{name}.so missing after the build")
 
@@ -1090,6 +1130,13 @@ def phase_train(name, config, root, log_dir, n_steps, lidar):
               f"{name}: the voxelized plane is not an autograd leaf")
         check(launches["voxel_bin_mean"] > 0,
               f"{name}: the training path never launched K1z")
+        check(launches["bn_forward"] == 0,
+              f"{name}: a float32 BatchNorm launched K2 ({launches})")
+    else:
+        check(launches["bn_forward"] == launches["bn_backward"]
+              == K2_LAYERS * n_steps,
+              f"{name}: K2 launched {launches}, want {K2_LAYERS} calls a "
+              f"bf16 step each way")
 
     recs = train_records(log_dir)
     check(len(recs) == n_steps, f"{name}: {len(recs)} steps logged")
@@ -2818,10 +2865,11 @@ def phase_soak_tools(lidar_root, las_root, tmp):
         check(math.isfinite(e["bench"]["value"]), f"soak {what} tiles/s")
     check(bev["merged_lines"] > 0, "the soak's merged map is empty")
     check(lidar["bench"]["n_tiles"] == N_CLOUDS, f"LiDAR stream {lidar}")
+    # the soak's record counts the binning kernels (K2 trains in process)
     in_process = read_launches()
     check(rec["launches"]["train"] == {"bev_bin_mean": 0, "voxel_bin_mean": 0}
           and sum(n for c in rec["launches"].values() for n in c.values())
-          == sum(in_process.values()),
+          == in_process["bev_bin_mean"] + in_process["voxel_bin_mean"],
           f"soak launches {rec['launches']}, in process {in_process}")
     log(f"soak, 7 stages: {soak_s:.3f} s; best composite "
         f"{train['best_composite']} after {train['steps']} steps; endpoint "
@@ -2878,6 +2926,8 @@ def phase_soak_tools(lidar_root, las_root, tmp):
             "stream_bench_runs": [r["launches"][name]
                                   for r in bench["runs"]],
             "stream_bench_from_las": las["launches"][name]}
+    launches["bn_forward"] = {
+        "soak_and_tools_in_process": in_process_tools["bn_forward"]}
     check(launches["voxel_bin_mean"]["soak_lidar"] > 0,
           "the soak's LiDAR stream never launched K1z")
     check(launches["bev_bin_mean"]["stream_bench_from_las"] > 0,
@@ -3030,7 +3080,7 @@ def phase_bench_tools(lidar_root, tmp):
         f" -> {entry['loss_last']}, val {entry['val']}")
     free_card()
     return {k: {path: c[k] for path, c in launches.items()}
-            for k in ("bev_bin_mean", "voxel_bin_mean")}
+            for k in ("bev_bin_mean", "voxel_bin_mean", "bn_forward")}
 
 
 # phase 24: the shape limits the port repaired.  The FPN's p2 maps hold
@@ -3247,8 +3297,8 @@ def phase_shape_limits(lidar_root, stems, pc_range):
     reset_launches()
     serve = bench.main(["--batch", str(SPLIT_BATCH), "--iters", "2",
                         "--warmup", "1"])
-    check(read_launches() == {"bev_bin_mean": 0, "voxel_bin_mean": 0},
-          "bench serving launched a binning kernel")
+    check(read_launches() == launch_counts(),
+          "bench serving launched a binning kernel or K2")
     check(serve["batch"] == SPLIT_BATCH and math.isfinite(
         serve["digest_mean"]) and serve["value"] > 0,
           f"bench serving at {SPLIT_BATCH} {serve}")
@@ -3287,7 +3337,8 @@ def phase_golden():
     bf16 stream's device program) at batch 1 and inside a batch of
     ``SPLIT_BATCH``, P3 (``--from-las``, float32, K1) and P4 (the
     LiDAR stream, K1z), every bar of ``torch_port_golden`` asserted.
-    Returns the binning kernels' launches in the phase."""
+    Returns the launches of K1, K1z and K2 (none: no training) in the
+    phase."""
     G = golden_module()
     f32 = G.load_golden("p1")
     reset_launches()
@@ -3303,7 +3354,7 @@ def phase_golden():
         golden_line("P3", "K1, float32", G.hold_p3(
             G.run_p3("cuda"), G.load_golden("p3"), "25 P3"))
         launches = read_launches()
-        check(launches == {"bev_bin_mean": 2, "voxel_bin_mean": 0},
+        check(launches == launch_counts(k1=2),
               f"25: P1 and P3 launched {launches} (P3: the tile and the "
               "count map)")
         golden_line("P4", "K1z, float32 on bf16-rounded weights",
@@ -3319,7 +3370,7 @@ def phase_golden():
                     G.hold_p2(run, bf16, f32, f"25 P2 batch {batch or 1}"))
         free_card()
     launches = read_launches()
-    check(launches == {"bev_bin_mean": 2, "voxel_bin_mean": 1},
+    check(launches == launch_counts(k1=2, k1z=1),
           f"25: launches {launches}")
     return launches
 
@@ -3327,8 +3378,8 @@ def phase_golden():
 def phase_golden_train(tmp):
     """Phase 26: the port's training on the card held to the golden set's
     training members (T0-T3 of ``torch_port_golden``) at full width,
-    batch 2, every bar asserted.  Returns the binning kernels' launches
-    in the phase."""
+    batch 2, every bar asserted.  Returns the launches of K1, K1z and K2
+    in the phase (K2 on T2's bf16 steps only)."""
     from lanemapping_tpu_torch.data import synthetic
     G = golden_module()
     meta = G.load_train_meta()
@@ -3347,7 +3398,7 @@ def phase_golden_train(tmp):
         fig = G.hold_float32(run, G.golden_pair("t1"), plan, "26 T1")
         log(f"26 T1 flagship float32: {json.dumps(fig, default=float)}")
         free_card()
-        check(read_launches() == {"bev_bin_mean": 0, "voxel_bin_mean": 0},
+        check(read_launches() == launch_counts(),
               f"26: T0 and T1 launched {read_launches()}")
         run = G.run_train("lidar", "cuda", "bfloat16", first["lidar"],
                           grids=True)
@@ -3357,8 +3408,7 @@ def phase_golden_train(tmp):
                                        "26 T3")
         log(f"26 T3 LiDAR, K1z: {json.dumps(fig, default=float)}")
         launches = read_launches()
-        check(launches == {"bev_bin_mean": 0,
-                           "voxel_bin_mean": G.TRAIN_STEPS},
+        check(launches == launch_counts(k1z=G.TRAIN_STEPS),
               f"26: T3 launched {launches} (K1z once a step)")
         free_card()
     finally:
@@ -3367,8 +3417,144 @@ def phase_golden_train(tmp):
     fig = G.hold_bf16(run, G.golden_pair("t2"), plan, "26 T2")
     log(f"26 T2 flagship bf16: {json.dumps(fig, default=float)}")
     free_card()
-    check(read_launches() == launches, f"26: T2 launched {read_launches()}")
+    launches = read_launches()
+    check(launches == launch_counts(k1z=G.TRAIN_STEPS,
+                                    k2=G.TRAIN_STEPS * K2_LAYERS),
+          f"26: T2 launched {launches} (K2 at each of the flagship's "
+          f"{K2_LAYERS} BatchNorm calls a step that it takes)")
     return launches
+
+
+def bf16_steps(a, b):
+    """The largest |a - b| in bf16 steps of the larger of |a| and |b|
+    (steps of 2^-15 below 2^-8)."""
+    import torch
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -8)
+    return float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(big))
+                                             - 7)).max())
+
+
+def rel_l2(a, b):
+    import torch
+    return float(torch.linalg.vector_norm(a.double() - b.double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+def phase_k2():
+    """Phase 27: K2 (`kernels/batch_norm.py`, `csrc/batch_norm.cu`) at the
+    flagship's training BatchNorm shapes, held to its plain versions in
+    float64 (y within one bf16 step, dx, dw and db within one bf16 step
+    by relative L2, the statistics and the running statistics at float32
+    tolerance, no move of them when frozen), then its forward and backward
+    pass timed in turns with the plain versions and the library's mixed
+    call (``native_batch_norm`` and its backward, bf16 in and out) beside
+    its bound; one launch of each pass a call.  Returns the kernels-line
+    entry."""
+    import torch
+    from lanemapping_tpu_torch.kernels import batch_norm as k2
+    eps, momentum = 1e-5, 0.1
+    rows = []
+    reset_launches()
+    for i, (shape, layers) in enumerate(K2_SHAPES):
+        c, dev = shape[1], torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(27 + i)
+        per_c = (1, c, 1, 1)
+        # a conv-like activation: per-channel offsets and scales
+        x = (torch.randn(shape, generator=g, device=dev)
+             * (torch.rand(c, generator=g, device=dev) * 2.5 + 0.5).view(
+                 per_c)
+             + (torch.rand(c, generator=g, device=dev) * 7.0 - 2.0).view(
+                 per_c)).to(torch.bfloat16).contiguous(
+                     memory_format=torch.channels_last)
+        dy = torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        w = torch.rand(c, generator=g, device=dev) + 0.5
+        b = torch.randn(c, generator=g, device=dev)
+        run = [torch.zeros(c, device=dev), torch.ones(c, device=dev)]
+        ref_run = [t.clone() for t in run]
+        y, stats = k2.bn_forward(x, w, b, *run, momentum, eps)
+        dx, dw, db = k2.bn_backward(dy, x, w, stats)
+        y_ref, stats_ref = k2.forward_ref(x, w, b, *ref_run, momentum, eps)
+        dx_ref, dw_ref, db_ref = k2.backward_ref(dy, x, w, stats_ref)
+        frozen = [t.clone() for t in run]
+        y_frozen, _ = k2.bn_forward(x, w, b, None, None, momentum, eps)
+        torch.cuda.synchronize()
+        row = {"shape": list(shape), "layers": layers,
+               "y_bf16_steps": bf16_steps(y, y_ref),
+               "dx_rel_l2": rel_l2(dx, dx_ref),
+               "dw_rel_l2": rel_l2(dw, dw_ref),
+               "db_rel_l2": rel_l2(db, db_ref),
+               "mean_max_abs_err": float((stats[0] - stats_ref[0]).abs()
+                                         .max()),
+               "invstd_max_rel_err": float(((stats[1] - stats_ref[1])
+                                            / stats_ref[1]).abs().max())}
+        what = f"K2 at {list(shape)}: {row}"
+        check(y.dtype == dx.dtype == torch.bfloat16 and y.is_contiguous(
+            memory_format=torch.channels_last), f"{what}: y {y.dtype}")
+        check(row["y_bf16_steps"] <= 1.0, f"{what}: y")
+        check(max(row["dx_rel_l2"], row["dw_rel_l2"], row["db_rel_l2"])
+              < 2.0 ** -8, f"{what}: gradients")
+        check(torch.allclose(stats[:2], stats_ref[:2], rtol=1e-5,
+                             atol=1e-6), f"{what}: statistics")
+        for got, want in zip(run, ref_run):
+            torch.testing.assert_close(got, want)
+        check(torch.equal(y_frozen, y) and all(
+            torch.equal(a, b) for a, b in zip(run, frozen)),
+              f"{what}: the frozen call moved the running statistics or y")
+
+        def kernel():
+            out, st = k2.bn_forward(x, w, b, *run, momentum, eps)
+            return k2.bn_backward(dy, x, w, st)
+
+        def plain():
+            out, st = k2.forward_ref(x, w, b, *run, momentum, eps)
+            return k2.backward_ref(dy, x, w, st)
+
+        def library():
+            out, mean, invstd = torch.native_batch_norm(
+                x, w, b, None, None, True, 0.0, eps)
+            return torch.ops.aten.native_batch_norm_backward(
+                dy, x, w, None, None, mean, invstd, True, eps,
+                [True, True, True])
+
+        t, _ = time_in_turns({"kernel": kernel, "plain": plain,
+                              "library": library}, iters=10)
+        n_bytes = x.numel() * K2_BYTES_PER_ELEMENT
+        row.update(ms=t["kernel"]["ms"], plain_ms=t["plain"]["ms"],
+                   library_ms=t["library"]["ms"],
+                   bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                   host_us=t["kernel"]["host_us"])
+        log(f"K2 at {list(shape)} (x{layers} a step), forward + backward: "
+            f"kernel {fmt_times(t['kernel'])}, plain {fmt_times(t['plain'])}"
+            f", native_batch_norm {fmt_times(t['library'])}, bound "
+            f"{row['bound_ms']:.4f} ms ({n_bytes / 1e6:.1f} MB at 3.35 "
+            f"TB/s, {100 * row['bound_ms'] / row['ms']:.1f}%); y within "
+            f"{row['y_bf16_steps']:.2f} bf16 steps, rel L2 dx "
+            f"{row['dx_rel_l2']:.2e} dw {row['dw_rel_l2']:.2e} db "
+            f"{row['db_rel_l2']:.2e}")
+        rows.append(row)
+        del x, dy, y, dx, y_ref, dx_ref, y_frozen
+        free_card()
+    launches = read_launches()
+    # checked and frozen; then two turns of 3 warm-up calls and 2 x 10
+    n_calls = 2 + 2 * (3 + 2 * 10)
+    check(launches == {**launch_counts(k2=n_calls * len(K2_SHAPES)),
+                       "bn_backward": (n_calls - 1) * len(K2_SHAPES)},
+          f"27: launches {launches}")
+    step = {k: sum(r[k] * r["layers"] for r in rows)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"K2, a flagship step's {K2_LAYERS} layers at batch 8 (ms): " +
+        ", ".join(f"{k} {v:.4f}" for k, v in step.items()))
+    stem = rows[0]
+    return {"name": "bn_forward", "route": "cuda",
+            "source": "lanemapping_tpu_torch/csrc/batch_norm.cu",
+            "replaces": None, "launches": None,
+            "max_y_bf16_steps": max(r["y_bf16_steps"] for r in rows),
+            "ms": stem["ms"], "plain_ms": stem["plain_ms"],
+            "bound_ms": stem["bound_ms"], "bound_by": "bytes",
+            "library_ms": stem["library_ms"], "library": "native_batch_norm",
+            "host_us": stem["host_us"], "step_ms": step, "shapes": rows}
 
 
 def torch_card_name():
@@ -3439,10 +3625,13 @@ def main():
                       lidar_root, os.path.join(tmp, "train_flagship"),
                       n_steps=8, lidar=False)
         k1["launches_train"] = train["launches"]["bev_bin_mean"]
+        k2_paths = {"launches_train": {
+            "flagship": train["launches"]["bn_forward"]}}
         train = phase(10, phase_train, "lidar training", LIDAR, lidar_root,
                       os.path.join(tmp, "train_lidar"), n_steps=6,
                       lidar=True)
         k1z["launches_train"] = train["launches"]["voxel_bin_mean"]
+        k2_paths["launches_train"]["lidar"] = train["launches"]["bn_forward"]
         phase(11, phase_train_card_vs_cpu, os.path.join(tmp, "tiny_train"),
               os.path.join(tmp, "train_tiny"))
 
@@ -3450,7 +3639,8 @@ def main():
                         os.path.join(tmp, "zoo"))
         training = phase(13, phase_zoo_train, lidar_root,
                          os.path.join(tmp, "zoo_train"))
-        for k in (k1, k1z):
+        k2 = {"name": "bn_forward"}
+        for k in (k1, k1z, k2):
             k["launches_zoo"] = {
                 name: {"serving": serving[name][k["name"]],
                        "training": training[name][k["name"]]}
@@ -3460,7 +3650,7 @@ def main():
 
         map3d = phase(15, phase_map3d, lidar_root, stems, tmp)
         branches = phase(16, phase_branches, root, lidar_root, tmp)
-        for k in (k1, k1z):
+        for k in (k1, k1z, k2):
             k["launches_map3d"] = {path: c[k["name"]]
                                    for path, c in map3d.items()}
             k["launches_branches"] = {
@@ -3480,24 +3670,26 @@ def main():
         k1["launches_replicas"] = phase(21, phase_stream_replicas, root,
                                         os.path.join(tmp, "replicas"))
         soak = phase(22, phase_soak_tools, lidar_root, root, tmp)
-        for k in (k1, k1z):
+        for k in (k1, k1z, k2):
             k["launches_soak"] = soak[k["name"]]
         bench_launches = phase(23, phase_bench_tools, lidar_root, tmp)
-        for k in (k1, k1z):
+        for k in (k1, k1z, k2):
             k["launches_bench"] = bench_launches[k["name"]]
         k1z["wide_cols"] = phase(24, phase_shape_limits, lidar_root, stems,
                                  DEFAULT_PC_RANGE)
         free_card()
         golden = phase(25, phase_golden)
-        for k in (k1, k1z):
+        for k in (k1, k1z, k2):
             k["launches_golden"] = golden[k["name"]]
         free_card()
         golden = phase(26, phase_golden_train, tmp)
-        for k in (k1, k1z):
+        for k in (k1, k1z, k2):
             k["launches_golden_train"] = golden[k["name"]]
+        free_card()
+        k2 = {**phase(27, phase_k2), **k2_paths, **k2}
     log(f"all phases passed in {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
-    print(json.dumps({"kernels": [k1, k1z]}), flush=True)
+    print(json.dumps({"kernels": [k1, k1z, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

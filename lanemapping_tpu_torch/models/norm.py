@@ -12,8 +12,19 @@ training they differ from ``nn.BatchNorm*d`` in two ways, both flax's
   few hundred values per channel), with momentum 0.1 (flax's 0.9);
 - the statistics and the normalisation run in at least float32 (a bf16
   activation comes back bf16), and the layer takes no running statistics
-  into the normalising call, so a bf16 input never meets float32 buffers
-  there.
+  into the normalising call: a bf16 input meets float32 parameters there,
+  never float32 buffers.
+
+In training on the card a bf16 or fp16 input (``MIXED_DTYPES``) is
+normalised in one mixed-precision pass each way: float32 weight, bias and
+statistics, the activation's dtype in and out, nothing float32 of the
+activation's size cast or saved for the backward pass.  The pass is K2
+(`kernels/batch_norm.py`, CUDA source `csrc/batch_norm.cu`) where the
+layout allows it (channels last, C a multiple of 8), else
+``torch.native_batch_norm``; the running statistics move toward its mean
+and biased variance (from the library call's inverse std, ``invstd^-2 -
+eps`` in float64: `batch_var_from_invstd`).  A float32 input takes
+``torch.var_mean`` for the running statistics and ``F.batch_norm``.
 
 ``frozen_batch_stats`` keeps the running statistics of a module's
 BatchNorms from moving (a checkpointed stage's recompute, where flax's
@@ -39,7 +50,8 @@ per thread, so their figures move with the intra-op thread count (and the
 process's history): their output sits 1e-4 from float64 at one thread
 on the LiDAR stem's [2, 32, 576, 576] (`tests/test_torch_port_cpu_norms.py`).
 ``_CpuNorm`` normalises with the statistics of `torch.var_mean` and sums
-its backward pass in float64; the card keeps PyTorch's kernels.
+its backward pass in float64; on the card a float32 input keeps
+PyTorch's kernels.
 
 ``Dropout`` draws its mask from ``generator`` when one is set (the Runner
 sets the train state's generator, seeded from ``cfg.seed``), else from
@@ -57,7 +69,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..kernels.batch_norm import MixedBatchNorm, supported
 from ..parallel.dist import get_rank, get_world_size, sum_over_ranks
+from ..utils.logger import count
+
+# input dtypes a training BatchNorm on the card normalises in one
+# mixed-precision pass (module docstring)
+MIXED_DTYPES = (torch.bfloat16, torch.float16)
 
 
 class _SyncBatchNorm(torch.autograd.Function):
@@ -173,12 +191,22 @@ class _CpuNorm(torch.autograd.Function):
         return dx, dw, db, None, None
 
 
+def batch_var_from_invstd(invstd: torch.Tensor, eps: float) -> torch.Tensor:
+    """The biased batch variance behind a normalising call's inverse
+    standard deviation, ``invstd^-2 - eps`` in float64 (in float32 a
+    variance far below ``eps`` cancels), at least 0."""
+    return invstd.double().pow(-2).sub_(eps).clamp_(min=0.0)
+
+
 class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
     frozen_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if x.dtype in MIXED_DTYPES and x.device.type != "cpu" \
+                and get_world_size() == 1:
+            return self._normalise_mixed(x)
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if get_world_size() > 1:
             y, mean, var = _SyncBatchNorm.apply(
@@ -203,6 +231,23 @@ class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
         y = F.batch_norm(x32, None, None, self.weight.to(x32.dtype),
                          self.bias.to(x32.dtype), training=True, eps=self.eps)
         return y.to(x.dtype)
+
+    def _normalise_mixed(self, x: torch.Tensor) -> torch.Tensor:
+        """Training on the card with a bf16 or fp16 ``x``: one pass, float32
+        parameters and statistics, ``x``'s dtype out; the running
+        statistics move toward its mean and biased variance."""
+        count("bn_mixed")
+        w, b = self.weight.float(), self.bias.float()
+        if supported(x):
+            running = (None, None) if self.frozen_stats else (
+                self.running_mean, self.running_var)
+            return MixedBatchNorm.apply(x, w, b, *running, self.momentum,
+                                        self.eps)
+        y, mean, invstd = torch.native_batch_norm(x, w, b, None, None, True,
+                                                  0.0, self.eps)
+        if not self.frozen_stats:
+            self._move_stats(mean, batch_var_from_invstd(invstd, self.eps))
+        return y
 
     @torch.no_grad()
     def _move_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:

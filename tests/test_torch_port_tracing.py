@@ -336,7 +336,8 @@ def _synthetic():
     spans.append(_span("train.step", 2000.0, 2001.0, 1.0, thread=9, sid=200))
     spans.append(_span("train.optimizer", 2000.0, 2001.0, 1.0, thread=9,
                        parent=200))
-    counters = {"tiles": 16, "proposals": 40, "native_fallbacks": 2}
+    counters = {"tiles": 16, "proposals": 40, "native_fallbacks": 2,
+                "bn_mixed": 72, "bn_k2": 64}
     builds = [{"tool": "nvcc", "library": "a", "start": 1.0, "end": 5.0,
                "seconds": 4.0},
               {"tool": "nvcc", "library": "b", "start": 2.0, "end": 6.0,
@@ -350,14 +351,17 @@ def _synthetic():
             "native_fallbacks.serve": 2,
             "step_host_ms.train": 12.5 - 3.0,
             "guard_wait_ms.train": 3.0,
-            "native_build_s": 5.0 + 2.5}
+            "native_build_s": 5.0 + 2.5,
+            "bn_mixed_per_step.train": 72 / 2,
+            "bn_k2_per_step.train": 64 / 2}
     return {"spans": spans, "counters": counters, "builds": builds,
             "dropped": 0}, want
 
 
 READERS = ["launch_offcpu.serve", "postprocess_offcpu.serve",
            "proposals_per_tile.serve", "native_fallbacks.serve",
-           "step_host_ms.train", "guard_wait_ms.train", "native_build_s"]
+           "step_host_ms.train", "guard_wait_ms.train", "native_build_s",
+           "bn_mixed_per_step.train", "bn_k2_per_step.train"]
 
 
 @pytest.mark.parametrize("metric", READERS)
@@ -408,3 +412,46 @@ def test_untraced_span_costs_a_flag_read(rec):
                 pass
     assert per_call(spans) < 0.25 * per_call(record_functions)
     assert rec.recorded()["spans"] == []
+
+
+def test_bn_mixed_reader_without_mixed_calls_and_without_the_call(
+        monkeypatch):
+    """0 where the traced steps ran no mixed BatchNorm call (float32
+    activations); no reading from a program whose BatchNorm has none."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from lanebench import core
+    from lanemapping_tpu_torch.models import norm
+    from lanemapping_tpu_torch.utils import logger
+
+    read = core.load_file_module(
+        os.path.join(REPO, "lanebench", "metrics",
+                     "bn_mixed_per_step.train.py"),
+        "tracing_test_bn_mixed_float32").read
+    recording, _ = _synthetic()
+    recording["counters"].pop("bn_mixed")
+    monkeypatch.setattr(logger, "recorded", lambda: recording)
+    assert read(types.SimpleNamespace()) == 0.0
+    monkeypatch.delattr(norm, "MIXED_DTYPES")
+    assert read(types.SimpleNamespace()) is None
+
+
+def test_bn_k2_reader_counts_k2_alone_and_nothing_without_k2(monkeypatch):
+    """The library's mixed calls count in ``bn_mixed`` and not here: 0
+    where no traced step launched K2; no reading from a program without
+    K2."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from lanebench import core
+    from lanemapping_tpu_torch.utils import logger
+
+    read = core.load_file_module(
+        os.path.join(REPO, "lanebench", "metrics", "bn_k2_per_step.train.py"),
+        "tracing_test_bn_k2").read
+    recording, _ = _synthetic()
+    recording["counters"].pop("bn_k2")
+    monkeypatch.setattr(logger, "recorded", lambda: recording)
+    assert read(types.SimpleNamespace()) == 0.0
+    monkeypatch.setitem(sys.modules,
+                        "lanemapping_tpu_torch.kernels.batch_norm", None)
+    assert read(types.SimpleNamespace()) is None
