@@ -13,6 +13,15 @@ lanes' windows overlap the later lane wins, as in the JAX loop of
 ``index_put`` over all lanes would hold duplicate indices, whose result is
 undefined on CUDA.
 
+Spans and counters (`utils/logger.py`, recorded only while a profiler
+runs; otherwise each is a flag read): the head's forward is the span
+``rowref.head`` with the children ``rowref.stage1`` (the two stage-1
+heads), ``rowref.window`` (argmax and gather), ``rowref.correlator`` (the
+lane tokens), ``rowref.write_back`` and ``rowref.stage2``; the counters
+``rowref.write_backs`` (one an ``index_put`` of ``write_back``),
+``rowref.lanes`` (lanes a forward) and ``rowref.lanes_gated`` (lanes whose
+refined window was written back, a device count).
+
 Inputs are NCHW correlator maps; the image-shaped outputs (GridSeg's and
 PixelSeg's ``cls``) come out NHWC, as the JAX heads return them.  Every
 layer takes its input width up front (flax infers it at init).  No torch
@@ -38,6 +47,7 @@ from ..ops.losses import cross_entropy_with_int_labels
 from ..parallel.dist import (get_world_size, global_mean, sum_over_ranks,
                              sum_over_ranks_grad)
 from ..registry import HEADS
+from ..utils.logger import count, count_device, recording, trace_span
 from .norm import BatchNorm1d
 from .resnet_fpn import BN_EPS, BN_MOMENTUM
 from .transformer import LN_EPS, Transformer
@@ -88,6 +98,7 @@ def write_back(x_pad: torch.Tensor, win: torch.Tensor,
     rows = torch.arange(S, device=win.device)[None, :, None]
     for n in range(N):
         x_pad = x_pad.index_put((bidx, rows, win[:, n]), upd[:, n])
+        count("rowref.write_backs")
     return x_pad
 
 
@@ -120,33 +131,47 @@ class RowSharNotReducRef(nn.Module):
 
     def forward(self, x):
         """x [B, F, S, S] correlator map -> stage-1/2 ext and cls probs."""
+        with trace_span("rowref.head"):
+            return self._forward(x)
+
+    def _forward(self, x):
         F_, S, N = self.dim_feat, self.row_size, self.n_lanes
         og, K = self.off_grid, 2 * self.off_grid + 1
         B = x.shape[0]
-        xh = x.permute(0, 2, 3, 1)  # NHWC, as the JAX head indexes it
-        row_tensor = self._rows(xh)
-        ext1 = torch.softmax(self.ext1(row_tensor), -1)  # [B,N,S,2]
-        cls1 = torch.softmax(self.cls1(row_tensor), -1)  # [B,N,S,S]
+        with trace_span("rowref.stage1"):
+            xh = x.permute(0, 2, 3, 1)  # NHWC, as the JAX head indexes it
+            row_tensor = self._rows(xh)
+            ext1 = torch.softmax(self.ext1(row_tensor), -1)  # [B,N,S,2]
+            cls1 = torch.softmax(self.cls1(row_tensor), -1)  # [B,N,S,S]
 
         # stage 2: lane-token correlation over each lane's column window
-        x_pad = F.pad(xh, (0, 0, og, og))  # [B, S, S+2og, F]
-        corr = torch.argmax(cls1, dim=-1)  # [B,N,S]
-        win = corr[..., None] + torch.arange(K, device=x.device)  # on pad
-        bidx = torch.arange(B, device=x.device)
-        rows = torch.arange(S, device=x.device)
-        window = x_pad[bidx[:, None, None, None], rows[None, None, :, None],
-                       win]  # [B,N,S,K,F]
-        # token per lane in (c h w) order (reference `:135-137`)
-        tok = self.to_token(window.permute(0, 1, 4, 2, 3).reshape(B, N, -1))
-        tok = self.lane_correlator(tok + self.lane_emb[None])
-        tok = self.from_token(self.corr_norm(tok))
-        refined = tok.reshape(B, N, F_, S, K).permute(0, 1, 3, 4, 2)
+        with trace_span("rowref.window"):
+            x_pad = F.pad(xh, (0, 0, og, og))  # [B, S, S+2og, F]
+            corr = torch.argmax(cls1, dim=-1)  # [B,N,S]
+            win = corr[..., None] + torch.arange(K, device=x.device)  # pad
+            bidx = torch.arange(B, device=x.device)
+            rows = torch.arange(S, device=x.device)
+            window = x_pad[bidx[:, None, None, None],
+                           rows[None, None, :, None], win]  # [B,N,S,K,F]
+        with trace_span("rowref.correlator"):
+            # token per lane in (c h w) order (reference `:135-137`)
+            tok = self.to_token(window.permute(0, 1, 4, 2, 3)
+                                .reshape(B, N, -1))
+            tok = self.lane_correlator(tok + self.lane_emb[None])
+            tok = self.from_token(self.corr_norm(tok))
+            refined = tok.reshape(B, N, F_, S, K).permute(0, 1, 3, 4, 2)
 
-        gate = ext1[..., 0].mean(-1) > self.thr_ext  # [B,N]
-        upd = torch.where(gate[:, :, None, None, None], refined, window)
-        row_tensor2 = self._rows(write_back(x_pad, win, upd)[:, :, og:S + og])
-        ext2 = torch.softmax(self.ext2(row_tensor2), -1)
-        cls2 = torch.softmax(self.cls2(row_tensor2), -1)
+        with trace_span("rowref.write_back"):
+            gate = ext1[..., 0].mean(-1) > self.thr_ext  # [B,N]
+            if recording():
+                count("rowref.lanes", B * N)
+                count_device("rowref.lanes_gated", gate.sum())
+            upd = torch.where(gate[:, :, None, None, None], refined, window)
+            row_tensor2 = self._rows(write_back(x_pad, win, upd)[:, :,
+                                                                 og:S + og])
+        with trace_span("rowref.stage2"):
+            ext2 = torch.softmax(self.ext2(row_tensor2), -1)
+            cls2 = torch.softmax(self.cls2(row_tensor2), -1)
         return {"ext": ext1, "cls": cls1, "ext2": ext2, "cls2": cls2}
 
 

@@ -6,6 +6,8 @@ the program's span and counter recorder and a profiler trace, with
     with trace_span("train.forward"):    # recorded while a profiler runs
         out = model(x)
     count("tiles", len(batch))           # likewise
+    if recording():                      # a count the card holds,
+        count_device("lanes", mask.sum())  # read by recorded()
     start_profiler_trace(log_dir)        # <log_dir>/profile/trace.json
     ...
     stop_profiler_trace()                # and <log_dir>/profile/spans.json
@@ -19,7 +21,10 @@ _is_profiler_enabled``): then each span is also a ``record_function``
 range, on the trace's clock (a profiler traces the ranges of the thread
 that started it; the recorder keeps every thread's spans).  With no profiler running a span is one flag
 read and a shared ``nullcontext``, a counter one flag read: no torch call,
-no clock, no log line.  Library builds (nvcc, g++) are one-off set-up
+no clock, no log line.  A device count (``count_device``) keeps the
+tensor it is given and is added to its counter when ``recorded()`` reads
+the counters, so the traced forward pass does not wait on the card for
+it.  Library builds (nvcc, g++) are one-off set-up
 events and are recorded always.  Records stay in memory (at most
 ``MAX_SPANS`` spans; later ones are counted as dropped); ``recorded()``
 hands them out and ``stop_profiler_trace`` writes them as ``spans.json``,
@@ -46,6 +51,7 @@ _OFF = contextlib.nullcontext()
 _spans: List[tuple] = []   # (id, parent, name, thread, name of thread,
 #                             start_ns, end_ns, cpu_ns)
 _counters: Dict[str, int] = {}
+_device_counts: Dict[str, List] = {}  # counter name -> 0-dim tensors
 _builds: List[Dict] = []
 _dropped = 0
 _ids = itertools.count(1)
@@ -154,6 +160,15 @@ def count(name: str, n: int = 1) -> None:
             _counters[name] = _counters.get(name, 0) + int(n)
 
 
+def count_device(name: str, n) -> None:
+    """Add the 0-dim integer tensor ``n`` to the counter ``name`` while a
+    profiler runs, without reading it: ``recorded()`` reads it (and so
+    waits for the card there).  Compute ``n`` only under ``recording()``."""
+    if _autograd_profiler._is_profiler_enabled:
+        with _lock:
+            _device_counts.setdefault(name, []).append(n.detach())
+
+
 def record_build(tool: str, library: str, start: float, end: float) -> None:
     """A library built by ``tool`` from ``start`` to ``end``
     (``perf_counter`` seconds): recorded always."""
@@ -169,9 +184,14 @@ def recorded() -> Dict:
     keys = ("id", "parent", "name", "thread", "thread_name", "start_ns",
             "end_ns", "cpu_ns")
     with _lock:
-        return {"spans": [dict(zip(keys, s)) for s in list(_spans)],
-                "counters": dict(_counters), "builds": list(_builds),
-                "dropped": _dropped}
+        out = {"spans": [dict(zip(keys, s)) for s in list(_spans)],
+               "counters": dict(_counters), "builds": list(_builds),
+               "dropped": _dropped}
+        pending = {k: list(v) for k, v in _device_counts.items()}
+    for k, ts in pending.items():
+        out["counters"][k] = out["counters"].get(k, 0) + sum(
+            int(t) for t in ts)
+    return out
 
 
 def reset_recorder() -> None:
@@ -181,6 +201,7 @@ def reset_recorder() -> None:
     with _lock:
         _spans.clear()
         _counters.clear()
+        _device_counts.clear()
         _dropped = 0
 
 

@@ -136,6 +136,11 @@ def test_import_loads_no_jax_and_no_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import os\n"
+        "from lanebench import core, rows, reference_rows, control_rows\n"
+        "from lanebench.plain.models import row_head\n"
+        "core.load_file_module(os.path.join(core.HERE, 'loops',\n"
+        "                                   'train_rows.py'), 'train_rows')\n"
         "new = ['kernels.voxel_bin', 'models.lidar_encoder',\n"
         "       'data.laserlane', 'data.label_gen', 'data.proposal_gt',\n"
         "       'data.synthetic', 'engine.state', 'tools.las2bev',\n"
