@@ -25,13 +25,23 @@ net's output dict holds (the loss function reads them):
 - **NaN guard** (`runner.py:178` of the reference): a non-finite loss
   leaves parameters, BatchNorm buffers (written during the forward, so
   restored), optimizer state and LR schedule as they were, and still
-  advances ``step``; ``skipped_nan`` reports it.  This costs one host read
-  of the loss per step.
-- **Spans** (`utils/logger.py`, recorded only while a profiler runs): the
-  step ``train.step`` holds its host phases ``train.buffers``,
-  ``train.cast``, ``train.forward``, ``train.loss``, ``train.backward``,
-  ``train.guard`` (the loss read) and ``train.optimizer``, in that order;
-  a device idle gap that straddles two phases falls in ``train.step``.
+  advances ``step``; ``skipped_nan`` reports it, a Python float of this
+  step.  The guard reads the loss, not the gradients, with one host read a
+  step.  On the card at a world of one the loss's finiteness is copied to
+  a pinned host flag, and an event recorded, before the backward pass is
+  enqueued; the read after it waits on that event, so only for the
+  forward pass and the loss, which the card has long finished, and not
+  for the backward pass.  On the CPU, and across ranks (whose global loss
+  exists only after an all-reduce that follows the backward pass), the
+  read takes the loss where the guard stands.
+- **Spans and counters** (`utils/logger.py`, recorded only while a
+  profiler runs): the step ``train.step`` holds its host phases
+  ``train.buffers``, ``train.cast``, ``train.forward``, ``train.loss``
+  (with the guard's flag copy), ``train.backward``, ``train.guard`` (the
+  read) and ``train.optimizer``, in that order; a device idle gap that
+  straddles two phases falls in ``train.step``.  The counter
+  ``guard_waits`` adds the reads that found the card not yet done: 0 or 1
+  a step.
 - **Data parallel as the JAX step under pjit** (a process group of more
   than one rank, `parallel/dist.py`): each rank runs the backward pass on
   its contribution to the global loss (`models/head_losses.py`; BatchNorm
@@ -55,7 +65,7 @@ import numpy as np
 import torch
 
 from ..parallel.dist import get_world_size, sum_over_ranks
-from ..utils.logger import trace_span, traced
+from ..utils.logger import count, recording, trace_span, traced
 
 
 @dataclass
@@ -140,8 +150,11 @@ def make_train_step(loss_fn: Callable[[Dict, Dict], Dict],
         q = p.to(compute_dtype)
         return q.to(act_dtype) if act_dtype != compute_dtype else q
 
+    flag = done = None  # the guard's pinned host flag and its event
+
     @traced("train.step")
     def step(state: TrainState, batch: Dict) -> Dict:
+        nonlocal flag, done
         model = state.model
         model.train()
         with trace_span("train.buffers"):
@@ -155,22 +168,37 @@ def make_train_step(loss_fn: Callable[[Dict, Dict], Dict],
                 out = model(inp)
             else:
                 out = torch.func.functional_call(model, params, (inp,))
+        world = get_world_size()
         with trace_span("train.loss"):
             res = loss_fn(out, batch)
-        loss = res["loss"]
+            loss = res["loss"]
+            early = loss.is_cuda and world == 1
+            if early:
+                if flag is None:
+                    flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+                    done = torch.cuda.Event()
+                flag.copy_(torch.isfinite(loss), non_blocking=True)
+                done.record(torch.cuda.current_stream(loss.device))
         with trace_span("train.backward"):
             state.optimizer.zero_grad(set_to_none=False)
             loss.backward()
         stats = {k: v.detach() for k, v in res["loss_stats"].items()}
         stats["loss"] = loss.detach()
-        world = get_world_size()
         if world > 1:
             # the global loss and terms: the sums of the contributions
             keys = list(stats)
             stats = dict(zip(keys, sum_over_ranks(torch.stack(
                 [stats[k].float() for k in keys])).unbind()))
         with trace_span("train.guard"):  # the step's one wait on the card
-            ok = bool(torch.isfinite(stats["loss"]))
+            if early:
+                if recording():
+                    count("guard_waits", not done.query())
+                done.synchronize()
+                ok = bool(flag)
+            else:
+                # a read of a loss on the card waits for all it has queued
+                count("guard_waits", stats["loss"].is_cuda)
+                ok = bool(torch.isfinite(stats["loss"]))
         if ok:
             with trace_span("train.optimizer"):
                 for p in model.parameters():

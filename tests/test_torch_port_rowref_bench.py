@@ -192,9 +192,18 @@ def _cell(dtype, limits=None):
                                  traffic=tr, limits={**lim, **MARGINS})
 
 
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads for the loop's bf16 steps on the CPU, and the
+    worker's count back after (later tests in the worker depend on it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _run(cell, seconds=1.0):
     from lanebench import core
-    torch.set_num_threads(2)
     rec = core.Run(cell, seconds, False)
     rec.device_kind = "cpu"
     core.loop(cell).run(cell, rec, SEED, seconds, torch.device("cpu"),
@@ -203,7 +212,7 @@ def _run(cell, seconds=1.0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_the_loop_and_its_check_run_on_the_cpu(dtype):
+def test_the_loop_and_its_check_run_on_the_cpu(dtype, two_threads):
     rec = _run(_cell(dtype))
     got = {**{n: v for n, v, _ in rec.checks},
            **rec.notes.get("readings", {})}
@@ -222,14 +231,13 @@ def test_the_loop_and_its_check_run_on_the_cpu(dtype):
         assert got["head1_gap"] > 1e-3
 
 
-def test_the_control_fails_where_the_program_passes():
+def test_the_control_fails_where_the_program_passes(two_threads):
     """The float8 control, on its own route, against limits at three
     times the program's readings: not correct, with route flips."""
     import lanebench.control_rows as control_rows
     cell = _cell("bfloat16")
     prog = {n: v for n, v, _ in _run(cell).checks}
     cell.limits = {**{k: 3.0 * v for k, v in prog.items()}, **MARGINS}
-    torch.set_num_threads(2)
     line = control_rows.seed_line(cell, SEED, torch.device("cpu"), "float8",
                                   1.0, program=False)
     assert line["control_correct"] is False, line["control_checks"]

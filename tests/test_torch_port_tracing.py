@@ -164,6 +164,8 @@ def test_train_step_records_its_seven_phases_in_order(rec):
     with _profiled():
         stats = step(state, batch)
     assert not stats["skipped_nan"]
+    # a read on the CPU never waits on a card
+    assert rec.recorded()["counters"]["guard_waits"] == 0
     spans = sorted(rec.recorded()["spans"], key=lambda s: s["start_ns"])
     outer, phases = spans[0], spans[1:]
     assert outer["name"] == "train.step" and outer["parent"] is None
@@ -337,7 +339,7 @@ def _synthetic():
     spans.append(_span("train.optimizer", 2000.0, 2001.0, 1.0, thread=9,
                        parent=200))
     counters = {"tiles": 16, "proposals": 40, "native_fallbacks": 2,
-                "bn_mixed": 72, "bn_k2": 64}
+                "bn_mixed": 72, "bn_k2": 64, "guard_waits": 1}
     builds = [{"tool": "nvcc", "library": "a", "start": 1.0, "end": 5.0,
                "seconds": 4.0},
               {"tool": "nvcc", "library": "b", "start": 2.0, "end": 6.0,
@@ -353,7 +355,8 @@ def _synthetic():
             "guard_wait_ms.train": 3.0,
             "native_build_s": 5.0 + 2.5,
             "bn_mixed_per_step.train": 72 / 2,
-            "bn_k2_per_step.train": 64 / 2}
+            "bn_k2_per_step.train": 64 / 2,
+            "guard_waits_per_step.train": 1 / 2}
     return {"spans": spans, "counters": counters, "builds": builds,
             "dropped": 0}, want
 
@@ -361,7 +364,8 @@ def _synthetic():
 READERS = ["launch_offcpu.serve", "postprocess_offcpu.serve",
            "proposals_per_tile.serve", "native_fallbacks.serve",
            "step_host_ms.train", "guard_wait_ms.train", "native_build_s",
-           "bn_mixed_per_step.train", "bn_k2_per_step.train"]
+           "bn_mixed_per_step.train", "bn_k2_per_step.train",
+           "guard_waits_per_step.train"]
 
 
 @pytest.mark.parametrize("metric", READERS)
@@ -454,4 +458,25 @@ def test_bn_k2_reader_counts_k2_alone_and_nothing_without_k2(monkeypatch):
     assert read(types.SimpleNamespace()) == 0.0
     monkeypatch.setitem(sys.modules,
                         "lanemapping_tpu_torch.kernels.batch_norm", None)
+    assert read(types.SimpleNamespace()) is None
+
+
+def test_guard_waits_reader_without_waits_and_without_the_counter(
+        monkeypatch):
+    """0 where every traced step found the loss's flag off the card; no
+    reading from a program that does not count the guard's waits."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from lanebench import core
+    from lanemapping_tpu_torch.utils import logger
+
+    read = core.load_file_module(
+        os.path.join(REPO, "lanebench", "metrics",
+                     "guard_waits_per_step.train.py"),
+        "tracing_test_guard_waits").read
+    recording, _ = _synthetic()
+    recording["counters"]["guard_waits"] = 0
+    monkeypatch.setattr(logger, "recorded", lambda: recording)
+    assert read(types.SimpleNamespace()) == 0.0
+    recording["counters"].pop("guard_waits")
     assert read(types.SimpleNamespace()) is None

@@ -296,7 +296,26 @@ def test_load_network_filtered_keeps_matching_shapes(data_root, tmp_path):
         assert dst.state.step == 0
 
 
-def test_nan_guard_skips_the_update(data_root, tmp_path):
+def _step_on_loss(runner, edit):
+    """The Runner's training step on the loss ``edit(out, loss)``."""
+    from lanemapping_tpu_torch.engine.state import make_train_step
+
+    def loss_fn(out, b):
+        res = runner._loss_fn(out, b)
+        return dict(res, loss=edit(out, res["loss"]))
+    return make_train_step(loss_fn, runner.compute_dtype, runner.use_lidar)
+
+
+def _adam_steps(runner):
+    return [float(s["step"]) for s in
+            runner.state.optimizer.state_dict()["state"].values()]
+
+
+@pytest.mark.parametrize("loss", ["nan", "inf", "finite"])
+def test_nan_guard_skips_the_update(data_root, tmp_path, loss):
+    """A NaN loss (from a NaN pixel) and a +inf loss (whose gradients are
+    the finite loss's) leave the state as it was but for ``step``; a
+    finite loss updates it and steps Adam and the schedule."""
     from lanemapping_tpu_torch.engine.runner import Runner
 
     _, cfg = tiny(data_root)
@@ -305,17 +324,58 @@ def test_nan_guard_skips_the_update(data_root, tmp_path):
     runner.train_step(runner.state, runner._device_batch(batch))
     before = port_state(runner)
     lr = runner.state.optimizer.param_groups[0]["lr"]
+    adam = _adam_steps(runner)
     db = runner._device_batch(batch)
-    proj = db["proj"].float() / 255.0
-    proj[0, 5, 7, 0] = float("nan")
-    db["proj"] = proj
-    stats = runner.train_step(runner.state, db)
-    assert stats["skipped_nan"] == 1.0 and not torch.isfinite(stats["loss"])
+    step = runner.train_step
+    if loss == "nan":
+        proj = db["proj"].float() / 255.0
+        proj[0, 5, 7, 0] = float("nan")
+        db["proj"] = proj
+    elif loss == "inf":
+        step = _step_on_loss(runner, lambda out, l: l + float("inf"))
+    stats = step(runner.state, db)
     after = port_state(runner)
     assert after["step"] == before["step"] + 1
+    assert type(stats["skipped_nan"]) is float
+    if loss == "finite":
+        assert stats["skipped_nan"] == 0.0 and torch.isfinite(stats["loss"])
+        assert after["scheduler"]["last_epoch"] == \
+            before["scheduler"]["last_epoch"] + 1
+        assert _adam_steps(runner) == [a + 1 for a in adam]
+        assert any(not torch.equal(after["model"][k], before["model"][k])
+                   for k, _ in runner.model.named_parameters())
+        return
+    assert stats["skipped_nan"] == 1.0 and not torch.isfinite(stats["loss"])
     after["step"] = before["step"]
     assert_same_state(after, before)
     assert runner.state.optimizer.param_groups[0]["lr"] == lr
+
+
+def test_nan_guard_reads_the_loss_not_the_gradients(data_root, tmp_path):
+    """A finite loss whose backward pass gives NaN gradients (``0 *
+    sqrt(0)`` of a head output: 0 forward, 0 x inf backward) is not
+    skipped: the update is applied, NaNs and all."""
+    from lanemapping_tpu_torch.engine.runner import Runner
+
+    _, cfg = tiny(data_root)
+    runner = Runner(cfg, log_dir=str(tmp_path), device="cpu")
+    batch = runner._device_batch(next(iter(runner_loader(runner))))
+    runner.train_step(runner.state, batch)
+    before = port_state(runner)
+    adam = _adam_steps(runner)
+
+    def poison(out, l):
+        o = next(v for v in out.values() if v.requires_grad)
+        return l + 0.0 * (o - o.detach()).sqrt().sum()
+    stats = _step_on_loss(runner, poison)(runner.state, batch)
+    assert torch.isfinite(stats["loss"]) and stats["skipped_nan"] == 0.0
+    assert not all(torch.isfinite(p.grad).all()
+                   for p in runner.model.parameters())
+    assert _adam_steps(runner) == [a + 1 for a in adam]
+    assert runner.state.scheduler.state_dict()["last_epoch"] == \
+        before["scheduler"]["last_epoch"] + 1
+    assert not all(torch.isfinite(p).all()
+                   for p in runner.model.parameters())
 
 
 def test_validate_matches_jax_metrics(data_root, tmp_path):
