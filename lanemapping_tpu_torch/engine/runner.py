@@ -57,6 +57,7 @@ from ..models.head_losses import (column_proposal_loss, head_hparams,
 from ..models.nets import build_model
 from ..parallel.dist import all_gather_host, get_world_size, is_main_process
 from .checkpoint import load_model, load_network_filtered, save_model
+from .pipeline import pipelined
 from .state import (create_train_state, eval_step, is_mono_batch,
                     make_train_step)
 
@@ -310,6 +311,16 @@ class Runner:
         return merged, counts
 
     # -- loops --------------------------------------------------------------
+    def _loop(self, batches, device_fn, host_fn, max_batches):
+        """The eval and export loops (`engine/pipeline.py::pipelined`):
+        ``device_fn`` here, ``host_fn`` on ``cfg.validate_workers`` threads
+        (default 4; inline on a host of two cores or fewer, where the
+        overlap has no spare core to run on)."""
+        default_workers = 4 if (os.cpu_count() or 1) > 2 else 0
+        return pipelined(batches, device_fn, host_fn,
+                         int(self.cfg.get("validate_workers",
+                                          default_workers)), max_batches)
+
     def train(self, max_iters: Optional[int] = None):
         cfg = self.cfg
         log_every = int(cfg.get("log_every", 10))
@@ -353,21 +364,22 @@ class Runner:
         binary segmentation F1 (10 px buffer) and endpoint F1 (20 px)."""
         from ..utils.metrics import (eval_metric_endp_detector,
                                      eval_metric_line_segmentor)
-        seg_scores, endp_scores = [], []
-        for i, batch in enumerate(loader):
-            if max_batches is not None and i >= max_batches:
-                break
-            pred = self._host(self._eval_seg(batch))
+
+        def score(dec, batch):
+            pred = self._host(dec)
+            tiles = []
             for b in range(batch["proj"].shape[0]):
-                seg_scores.append(eval_metric_line_segmentor(
-                    pred["seg"][b], batch["mask"][b], buffer_px=10))
-                endp_scores.append(eval_metric_endp_detector(
-                    np.argwhere(pred["endp"][b] > 0),
-                    batch["endp_map"][b], r_thre=20))
-        seg_f1 = float(np.mean([s["f1"] for s in seg_scores])) \
-            if seg_scores else 0.0
-        endp_f1 = float(np.mean([s["f1"] for s in endp_scores])) \
-            if endp_scores else 0.0
+                seg = eval_metric_line_segmentor(
+                    pred["seg"][b], batch["mask"][b], buffer_px=10)
+                endp = eval_metric_endp_detector(
+                    np.argwhere(pred["endp"][b] > 0), batch["endp_map"][b],
+                    r_thre=20)
+                tiles.append((seg["f1"], endp["f1"]))
+            return tiles
+        scores = [s for r in self._loop(loader, self._eval_seg, score,
+                                        max_batches) for s in r]
+        seg_f1 = float(np.mean([s[0] for s in scores])) if scores else 0.0
+        endp_f1 = float(np.mean([s[1] for s in scores])) if scores else 0.0
         scalars, _ = self._merge_metrics({"seg_f1": seg_f1,
                                           "endp_f1": endp_f1})
         seg_f1, endp_f1 = scalars["seg_f1"], scalars["endp_f1"]
@@ -381,11 +393,9 @@ class Runner:
         ``row_size``: the whole label grid)."""
         from ..utils.metrics import grid_measures
         cfg = self.cfg
-        f1s = []
-        for i, batch in enumerate(loader):
-            if max_batches is not None and i >= max_batches:
-                break
-            dec = self._host(self._eval_grid(batch))
+
+        def score(dec, batch):
+            dec = self._host(dec)
             if self.head_type == "RowSharNotReducRef":
                 conf_pred = dec["conf"]
             else:
@@ -394,21 +404,18 @@ class Runner:
             row_size = int(cfg.heads.get("row_size", batch["label"].shape[2]))
             conf_label = (batch["label"][:, :, :row_size] != 255).astype(
                 np.float64)
-            for b in range(conf_pred.shape[0]):
-                f1s.append(grid_measures(conf_label[b], conf_pred[b])["f1"])
+            return [grid_measures(conf_label[b], conf_pred[b])["f1"]
+                    for b in range(conf_pred.shape[0])]
+        f1s = [v for r in self._loop(loader, self._eval_grid, score,
+                                     max_batches) for v in r]
         f1 = float(np.mean(f1s)) if f1s else 0.0
         f1 = self._merge_metrics({"conf_f1": f1})[0]["conf_f1"]
         return {"conf_f1": f1, "composite": f1}
 
     def _validate_lanes(self, loader, max_batches) -> Dict:
-        """Lane-coordinate validation (reference `runner.py:223-353`),
-        pipelined: the forward and decode of batch i+1 run on the device
-        while worker threads run the host postprocess (readback, tracker,
-        NMS, metrics) of batch i.  Workers return per-batch results; the
-        sums stay on this thread."""
-        from collections import deque
-        from concurrent.futures import ThreadPoolExecutor
-
+        """Lane-coordinate validation (reference `runner.py:223-353`): the
+        host postprocess (readback, tracker, NMS, metrics) on the loop's
+        workers, the sums on this thread."""
         from ..decode.postprocess import lane_maps_from_decode
         from ..utils.metrics import (cal_coor_measures,
                                      eval_metric_endp_detector,
@@ -418,9 +425,8 @@ class Runner:
         buff = cfg.get("validate_buffer", 10)
         img_size = cfg.list_img_size_xy[0]
 
-        def score(dec_dev, batch):
-            dec = {k: v.cpu().numpy() for k, v in dec_dev.items()}
-            maps = lane_maps_from_decode(dec, cfg)
+        def score(dec, batch):
+            maps = lane_maps_from_decode(self._host(dec), cfg)
             coor, endp = [], []
             sem = None
             for b in range(len(batch["lc_coor_raw"])):
@@ -445,27 +451,7 @@ class Runner:
                         sem[k] += m[k]
             return coor, endp, sem
 
-        # overlap only pays with spare cores to run the pool on
-        default_workers = 4 if (os.cpu_count() or 1) > 2 else 0
-        n_workers = int(cfg.get("validate_workers", default_workers))
-        results = []
-        if n_workers == 0:
-            for i, batch in enumerate(loader):
-                if max_batches is not None and i >= max_batches:
-                    break
-                results.append(score(self._eval_decode(batch), batch))
-        else:
-            # backpressure: each pending future pins its batch in host RAM
-            futs = deque()
-            with ThreadPoolExecutor(n_workers) as pool:
-                for i, batch in enumerate(loader):
-                    if max_batches is not None and i >= max_batches:
-                        break
-                    futs.append(pool.submit(score, self._eval_decode(batch),
-                                            batch))
-                    while len(futs) >= 2 * n_workers:
-                        results.append(futs.popleft().result())
-                results.extend(f.result() for f in futs)
+        results = self._loop(loader, self._eval_decode, score, max_batches)
         coor_f1s = [v for r in results for v in r[0]]
         endp_f1s = [v[0] for r in results for v in r[1]]
         endp_accs = [v[1] for r in results for v in r[1]]
@@ -502,11 +488,10 @@ class Runner:
         from ..decode.postprocess import lane_maps_from_decode
 
         os.makedirs(out_dir, exist_ok=True)
-        for i, batch in enumerate(loader):
-            if max_batches is not None and i >= max_batches:
-                break
-            maps = lane_maps_from_decode(self._host(self._eval_decode(batch)),
-                                         self.cfg)
+
+        def export(dec, item):
+            i, batch = item
+            maps = lane_maps_from_decode(self._host(dec), self.cfg)
             for j, name in enumerate(_tile_names(batch, i)):
                 _write_lanes(out_dir, name, maps["cls_offset_smooth"][j])
                 if write_view:
@@ -516,6 +501,8 @@ class Runner:
                                    batch["proj"][j],
                                    maps["cls_offset_smooth"][j],
                                    maps["endp_by_cls"][j]))
+        self._loop(enumerate(loader), lambda item: self._eval_decode(item[1]),
+                   export, max_batches)
 
     def infer_grid_and_export(self, loader, out_dir: str,
                               max_batches: Optional[int] = None,
@@ -527,11 +514,10 @@ class Runner:
         from ..decode.row_decode import row_lane_maps
 
         os.makedirs(out_dir, exist_ok=True)
-        for i, batch in enumerate(loader):
-            if max_batches is not None and i >= max_batches:
-                break
-            maps = row_lane_maps(self._host(self._eval_grid(batch)),
-                                 self.cfg, self.head_type)
+
+        def export(dec, item):
+            i, batch = item
+            maps = row_lane_maps(self._host(dec), self.cfg, self.head_type)
             for j, name in enumerate(_tile_names(batch, i)):
                 _write_lanes(out_dir, name, maps["cls_offset_smooth"][j])
                 if write_view:
@@ -543,6 +529,8 @@ class Runner:
                                    maps["cls_offset_smooth"][j]))
                     _write_png(out_dir, f"{name}_grid.png",
                                rgb_cls_map(maps["cls_idx"][j]))
+        self._loop(enumerate(loader), lambda item: self._eval_grid(item[1]),
+                   export, max_batches)
 
     def infer_segmentor_and_export(self, loader,
                                    out_dir: Optional[str] = None,
@@ -558,27 +546,34 @@ class Runner:
 
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
-        counts = {k: {"tp": 0, "n_pred": 0, "dg": 0, "n_gt": 0}
-                  for k in ("coor", "semantic")}
         buff = self.cfg.get("validate_buffer", 10)
-        for i, batch in enumerate(loader):
-            if max_batches is not None and i >= max_batches:
-                break
-            pred = self._host(self._eval_seg(batch))
+
+        def score(dec, item):
+            i, batch = item
+            pred = self._host(dec)
             names = _tile_names(batch, i)
+            tiles = []
             for b in range(batch["proj"].shape[0]):
-                for key, bi in (("semantic", False), ("coor", True)):
-                    m = eval_metric_line_segmentor(
-                        pred["seg"][b], batch["mask"][b], bi_seg=bi,
-                        semantics=2, buffer_px=buff)
-                    for k in counts[key]:
-                        counts[key][k] += m[k]
+                tiles.append({key: eval_metric_line_segmentor(
+                    pred["seg"][b], batch["mask"][b], bi_seg=bi,
+                    semantics=2, buffer_px=buff)
+                    for key, bi in (("semantic", False), ("coor", True))})
                 if write_view and out_dir:
                     seg_img, skel_img = segmentor_displays(
                         batch["proj"][b], pred["seg"][b], pred["endp"][b])
                     _write_png(out_dir, f"{names[b]}_segmentor.png", seg_img)
                     _write_png(out_dir, f"{names[b]}_seg_skeleton.png",
                                skel_img)
+            return tiles
+        counts = {k: {"tp": 0, "n_pred": 0, "dg": 0, "n_gt": 0}
+                  for k in ("coor", "semantic")}
+        for tiles in self._loop(enumerate(loader),
+                                lambda item: self._eval_seg(item[1]), score,
+                                max_batches):
+            for tile in tiles:
+                for key, m in tile.items():
+                    for k in counts[key]:
+                        counts[key][k] += m[k]
         metrics = {}
         for key, c in counts.items():
             # pooled over every rank's tiles (the JAX method logs rank 0's)

@@ -67,7 +67,6 @@ import itertools
 import json
 import os
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -234,6 +233,7 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
     from ..data.las_tiles import LasTiles
     from ..data.loader import Loader
     from ..decode.postprocess import lane_maps_from_decode
+    from ..engine.pipeline import pipelined
     from ..kernels.bev_bin import bev_bin_mean
     from ..kernels.voxel_bin import voxel_bin_mean
     from ..models.nets import build_model
@@ -331,7 +331,8 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
     def postprocess(decs, names):
         """Readback of every replica's rows (in tile order, padded tiles
         dropped), then tracker/NMS/semantics and the JSONs, on a worker.
-        Returns (lane arc length px, readback s, host postprocess s)."""
+        Returns (tiles, lane arc length px, readback s, host postprocess
+        s)."""
         t0 = time.perf_counter()
         dec = {k: np.concatenate([d[k].cpu().numpy() for d in decs])[
             :len(names)] for k in decs[0]}
@@ -348,7 +349,7 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
                     px += float(np.sum(np.hypot(d[:, 0], d[:, 1])))
             with open(os.path.join(lanes_dir, f"{name}.json"), "w") as f:
                 json.dump(recs, f)
-        return px, t_read, time.perf_counter() - t0
+        return len(names), px, t_read, time.perf_counter() - t0
 
     kernels = (bev_bin_mean, voxel_bin_mean)
     launched = [k.launches for k in kernels]
@@ -364,22 +365,19 @@ def main(argv=None, devices: Optional[Sequence] = None) -> Dict:
     postprocess(fwd_dec(head, timed=False), head["image_name"])
     clock.synchronize()
 
-    n_tiles = n_batches = 0
-    with ThreadPoolExecutor(6) as pool:
-        t0 = time.perf_counter()
-        pending = []
-        for b in itertools.chain([head], stream):
-            dec = fwd_dec(b, timed=True)
-            pending.append(pool.submit(postprocess, dec, b["image_name"]))
-            n_tiles += len(b["image_name"])
-            n_batches += 1
-        results = [p.result() for p in pending]
-        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = pipelined(itertools.chain([head], stream),
+                        lambda b: fwd_dec(b, timed=True),
+                        lambda dec, b: postprocess(dec, b["image_name"]),
+                        workers=6)
+    wall = time.perf_counter() - t0
+    n_batches = len(results)
+    n_tiles = sum(r[0] for r in results)
     stage_ms = clock.ms_per_stage(n_batches)
     stage_ms["postprocess_host"] = \
-        float(np.mean([r[2] for r in results])) * 1e3
-    stage_ms["readback"] = float(np.mean([r[1] for r in results])) * 1e3
-    lane_px = sum(r[0] for r in results)
+        float(np.mean([r[3] for r in results])) * 1e3
+    stage_ms["readback"] = float(np.mean([r[2] for r in results])) * 1e3
+    lane_px = sum(r[1] for r in results)
     tiles_s = n_tiles / max(wall, 1e-9)
     km_lane_h = lane_px * cfg.get("img_reso", 0.05) / 1000.0 \
         / max(wall, 1e-9) * 3600.0

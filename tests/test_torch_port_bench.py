@@ -34,19 +34,6 @@ from torch_port_helpers import (REPO, TINY, TINY_LIDAR,
 NEW_MODULES = ("bench", "profile_train", "train_mfu_sweep", "config_smoke")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads here and in the tools' child processes: these
-    tests train in bf16 on the CPU, which under the suite's parallel
-    workers slows down many times over with a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "2")
-        yield
-    torch.set_num_threads(n)
-
-
 def _subjaxprs(params):
     for v in params.values():
         for x in (v if isinstance(v, (tuple, list)) else (v,)):

@@ -11,21 +11,7 @@ import os
 import sys
 
 import pytest
-import torch
 from torch_port_helpers import REPO, TINY
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads here and in the tools' child processes: these
-    tests train in bf16 on the CPU, which under the suite's parallel
-    workers slows down many times over with a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "2")
-        yield
-    torch.set_num_threads(n)
 
 
 def kernel(name, ts, dur, cat="kernel"):

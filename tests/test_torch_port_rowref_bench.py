@@ -192,16 +192,6 @@ def _cell(dtype, limits=None):
                                  traffic=tr, limits={**lim, **MARGINS})
 
 
-@pytest.fixture
-def two_threads():
-    """Two intra-op threads for the loop's bf16 steps on the CPU, and the
-    worker's count back after (later tests in the worker depend on it)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _run(cell, seconds=1.0):
     from lanebench import core
     rec = core.Run(cell, seconds, False)
@@ -212,7 +202,7 @@ def _run(cell, seconds=1.0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_the_loop_and_its_check_run_on_the_cpu(dtype, two_threads):
+def test_the_loop_and_its_check_run_on_the_cpu(dtype):
     rec = _run(_cell(dtype))
     got = {**{n: v for n, v, _ in rec.checks},
            **rec.notes.get("readings", {})}
@@ -231,7 +221,7 @@ def test_the_loop_and_its_check_run_on_the_cpu(dtype, two_threads):
         assert got["head1_gap"] > 1e-3
 
 
-def test_the_control_fails_where_the_program_passes(two_threads):
+def test_the_control_fails_where_the_program_passes():
     """The float8 control, on its own route, against limits at three
     times the program's readings: not correct, with route flips."""
     import lanebench.control_rows as control_rows

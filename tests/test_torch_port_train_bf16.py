@@ -39,7 +39,8 @@ import torch
 
 import torch_port_golden as G
 import torch_port_make_golden as M
-from torch_port_helpers import jax_device_batch, tiny_models, wire_data_root
+from torch_port_helpers import (jax_device_batch, tiny_models,  # noqa: F401
+                                two_threads, wire_data_root)
 
 SEEDS = (0, 1)
 MODULE_SLOPE, MODULE_FLOOR = 1.5, 1e-3
@@ -63,16 +64,6 @@ def root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("laserlane"))
     generate_dataset(root, n_tiles=4, img=192, seed=3)
     return root
-
-
-@pytest.fixture()
-def two_threads():
-    """bf16 on the CPU at two intra-op threads (as the bf16 tests of
-    `test_torch_port_bench.py`), restored after the test."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def bf16_step(root, seed, log_dir):

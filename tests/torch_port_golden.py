@@ -99,9 +99,9 @@ VOXEL_SAMPLE_SEED = 25
 
 
 # a golden hold's intra-op threads: since the CPU norms' repair its
-# figures do not depend on the count (ROADMAP Queue 3 item 10), and under
-# the suite's parallel workers a thread per core slows the full-width holds
-# several times over (the bf16 tests run at two for the same reason)
+# figures do not depend on the count (ROADMAP Queue 3 item 10); a hold
+# pins one all the same, so that a failed bar names it (``names_threads``)
+# and T3 can hold the same figures at one thread
 HOLD_THREADS = 2
 
 

@@ -32,6 +32,15 @@ def golden_threads(request):
         yield n
 
 
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads, restored after: for the tests whose bars were
+    set at two threads."""
+    from torch_port_golden import threads
+    with threads(2):
+        yield
+
+
 def configs(path=TINY):
     """(JAX Config, port Config) of one config file."""
     import lanemapping_tpu as lm
@@ -206,10 +215,11 @@ def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
 
 
-def rel_max_err(got, want) -> float:
-    """max |got - want| / max(1e-3, max |want|) — the bar of the existing
-    torch-parity harness (`tests/test_torch_parity.py:452`), 2e-3 in f32."""
-    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+def rel_max_err(got, want, dtype=np.float32) -> float:
+    """max |got - want| / max(1e-3, max |want|) in ``dtype`` — the bar of
+    the existing torch-parity harness (`tests/test_torch_parity.py:452`),
+    2e-3 in f32."""
+    got, want = np.asarray(got, dtype), np.asarray(want, dtype)
     assert got.shape == want.shape, (got.shape, want.shape)
     return float(np.abs(got - want).max() / max(1e-3, np.abs(want).max()))
 
